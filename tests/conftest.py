@@ -18,3 +18,9 @@ jax.config.update("jax_numpy_rank_promotion",
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without "
+        "one (run on the card with `python -m pytest -m gpu tests/`)")
