@@ -7,17 +7,29 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card:
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  -- the card's name, and its name and power limit from nvidia-smi;
-  2. build   -- nvcc builds every kernel from src/repro_torch/csrc/, in
-                parallel, and prints what ptxas reports;
+  2. build   -- nvcc builds every kernel library from src/repro_torch/csrc/,
+                in parallel, and prints what ptxas reports;
   3. parity  -- each kernel against its plain PyTorch version on the card,
-                at the main path's shapes and at edge shapes;
+                at the main paths' shapes and at edge shapes (ragged N, a
+                masked L = 3, every packing width);
   4. slice   -- the FEMNIST FedLite train step at full width (d = 9216,
                 q = 1152, L = 2, R = 1, 5 Lloyd iterations, 10 clients of
                 20 examples, λ = 1e-4, sgd(10**-1.5)) for --steps steps,
                 with the launch counts of the kernels read around the run,
                 and step 1 held against the same step on the plain versions;
-  5. times   -- each kernel's device time next to its plain version's and
-                its bound, and the step time.
+  5. kmeans  -- batched_kmeans at the FEMNIST grouping (10 problems of
+                23040 x 8, L = 2, 5 iterations) on "auto" (the kernels) and
+                "torch" (plain), launch counts read around the "auto" run;
+  6. slice 2 -- the same step with the compressed downlink
+                "chain:topk(k=0.1)+scalarq(bits=8)" and a CutState carried
+                from step to step (step 1 cold, 5 Lloyd iterations; later
+                steps warm, 2), for --steps steps, with launch counts, and
+                steps 1 and 2 held against the plain versions;
+  7. payload -- the slice's downlink payload codes packed into 8-bit words
+                and unpacked on the card, against the plain versions and
+                the wire format's LSB-first byte stream;
+  8. times   -- each kernel's device time next to its plain version's and
+                its bound, and the step times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -50,6 +62,15 @@ CUT_D = 9216
 DSUB = CUT_D // Q
 M = Q // R * CLIENT_BATCH              # rows of one k-means problem: 23040
 M_PAD = -(-M // 4096) * 4096           # padded to the 4096-row chunk: 24576
+# the downlink of slice 2: top-k keeps 10 % of each client's 20 x 9216
+# cotangent, then scalarq codes the kept values at 8 bits
+DOWNLINK = "chain:topk(k=0.1)+scalarq(bits=8)"
+DOWNLINK_PLAIN = "chain:topk(k=0.1)+scalarq(bits=8,backend=torch)"
+DL_BITS = 8
+DL_TOTAL = CLIENT_BATCH * CUT_D        # one client's cotangent: 184320
+DL_KEPT = round(0.1 * DL_TOTAL)        # the chain's carrier: 18432
+WARM_ITERS = ITERS // 2                # Lloyd iterations of a warm step
+PACK_BITS = (1, 2, 4, 8, 16)
 
 TIE_RTOL = 1e-5       # top-two scores this close may pick either code
 # lloyd_update's dsums: within DSUM_ATOL of the plain version summed in the
@@ -59,6 +80,16 @@ TIE_RTOL = 1e-5       # top-two scores this close may pick either code
 # 1e-4 holds only for the same order.
 DSUM_ATOL = 1e-4
 DSUM_RTOL = 2e-5
+# kmeans_assign's squared distances: ‖x‖² − best in f32, each rounded once
+SQDIST_RTOL = 1e-5    # of (1 + ‖x‖²)
+# step-1 losses of a kernel step and a plain step from the same inputs
+LOSS_ATOL = 1e-4
+# the warm step 2 of slice 2, from the same inputs: its 2 Lloyd iterations
+# sum in another order on the two paths, so the codebooks differ by ~1e-4
+# and a subvector near the boundary of two centroids may take the other
+# code; one such flip moves one example's loss, the batch mean by up to
+# ~1e-4 (7.7e-5 seen on an H100), so the bound is 10x that
+WARM_LOSS_ATOL = 1e-3
 
 
 def fail(msg: str):
@@ -144,13 +175,14 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    infos = _build.build(["lloyd_update", "pq_quantize"])
+    libs = ["lloyd_update", "pq_quantize", "kmeans_assign", "scalar_quant"]
+    infos = _build.build(libs)
     for name, info in infos.items():
         say("build", f"{name}: {info.path.name} in {info.seconds:.1f} s")
         for line in info.ptxas.strip().splitlines():
             say("build", f"  {line.strip()}")
-    say("build", f"both kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(parallel nvcc)")
+    say("build", f"{len(libs)} libraries built in "
+        f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
 
 def check_lloyd(tag, x, c, w):
@@ -215,6 +247,96 @@ def check_pq(tag, x, c):
     return err, zt, resid, codes
 
 
+def wire_stream(codes: np.ndarray, bits: int) -> bytes:
+    """The wire format's code stream: each code's ``bits`` low bits,
+    least significant first, packed into bytes LSB-first (as
+    ``federated/wire.py``'s ``_pack_codes`` writes it)."""
+    flat = codes.reshape(-1).astype(np.uint32)
+    bitmat = (flat[:, None] >> np.arange(bits, dtype=np.uint32)) & 1
+    return np.packbits(bitmat.astype(np.uint8).reshape(-1),
+                       bitorder="little").tobytes()
+
+
+def check_kmeans_assign(tag, x, c):
+    """kmeans_assign vs its plain version; returns max |sqdist err| where
+    the codes agree."""
+    from repro_torch.kernels import ops, ref
+
+    cp, lmask = ops._pad_centroids(c)
+    codes, sq = ops.kmeans_assign(x, c)
+    codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
+    torch.cuda.synchronize()
+    differ = codes.long() != codes_r
+    ties = ref.near_ties(x, cp, lmask, TIE_RTOL)
+    if bool((differ & ~ties).any()):
+        fail(f"kmeans_assign {tag}: {int((differ & ~ties).sum())} codes "
+             f"differ away from near-ties")
+    agree = ~differ
+    scale = 1 + x.square().sum(-1)
+    err = (sq - sq_r).abs()
+    rel = float((err / scale)[agree].max())
+    if not rel <= SQDIST_RTOL:
+        fail(f"kmeans_assign {tag}: sqdist off by {rel} of (1 + ‖x‖²)")
+    err_max = float(err[agree].max())
+    say("parity", f"kmeans_assign {tag}: x {tuple(x.shape)} L={c.shape[1]}: "
+        f"{int(differ.sum())} codes differ (all near-ties); max |sqdist "
+        f"err| {err_max:.3e} ({rel:.3e} of 1 + ‖x‖²)")
+    return err_max
+
+
+def scalar_range(x, bits):
+    """The scalarq compressor's per-problem range (lo, scale)."""
+    lo = x.amin(-1)
+    scale = (x.amax(-1) - lo) / ((1 << bits) - 1)
+    return lo, torch.where(scale > 0, scale, 1.0)
+
+
+def check_scalar(tag, x, bits):
+    """scalar_quantize vs its plain version: codes and recon bitwise."""
+    from repro_torch.kernels import ops, ref
+
+    lo, scale = scalar_range(x, bits)
+    codes, recon = ops.scalar_quantize(x, lo, scale, bits)
+    codes_r, recon_r = ref.scalar_quantize_ref(x, lo, scale, bits)
+    torch.cuda.synchronize()
+    if not (torch.equal(codes, codes_r) and torch.equal(recon, recon_r)):
+        fail(f"scalar_quantize {tag}: codes or recon not bitwise equal to "
+             f"the plain version ({int((codes != codes_r).sum())} codes, "
+             f"{int((recon != recon_r).sum())} recon values differ)")
+    say("parity", f"scalar_quantize {tag}: x {tuple(x.shape)} b={bits}: "
+        f"codes and recon bitwise equal")
+    return 0.0
+
+
+def check_pack(tag, codes, bits):
+    """pack_codes / unpack_codes vs their plain versions and the wire
+    stream: words bitwise, bytes equal, the round trip exact."""
+    from repro_torch.kernels import ops, ref
+
+    p, n = codes.shape
+    words = ops.pack_codes(codes, bits)
+    back = ops.unpack_codes(words, n, bits)
+    words_r = ref.pack_codes_ref(codes, bits)
+    torch.cuda.synchronize()
+    if not torch.equal(words, words_r):
+        fail(f"pack_codes {tag}: words differ from the plain version")
+    if not torch.equal(back, codes):
+        fail(f"unpack_codes {tag}: the round trip is not exact")
+    if not torch.equal(back, ref.unpack_codes_ref(words_r, n, bits)):
+        fail(f"unpack_codes {tag}: codes differ from the plain version")
+    host = words.cpu().numpy().view(np.uint32).astype("<u4")
+    src = codes.cpu().numpy()
+    for i in range(p):
+        stream = wire_stream(src[i], bits)
+        if host[i].tobytes()[:len(stream)] != stream:
+            fail(f"pack_codes {tag}: problem {i}'s bytes are not the wire "
+                 f"stream")
+    say("parity", f"pack_codes/unpack_codes {tag}: codes {tuple(codes.shape)}"
+        f" b={bits} -> words {tuple(words.shape)}: bitwise the plain "
+        f"version and the wire stream; round trip exact")
+    return 0.0
+
+
 def phase_parity(gen):
     from repro_torch.kernels import ops, ref
 
@@ -262,7 +384,34 @@ def phase_parity(gen):
         fail("the empty cluster has a nonzero count")
     say("parity", "exact cover: dsums and residual exactly 0; empty "
         "cluster: count 0, dsums 0")
-    return lloyd_err, pq_err
+
+    errs = {"lloyd_update": lloyd_err, "pq_quantize": pq_err}
+    # kmeans_assign: the kmeans phase's grouping, then the edge shapes
+    errs["kmeans_assign"] = max(
+        check_kmeans_assign("main", x[:, :M].contiguous(), c),
+        *(check_kmeans_assign(tag, normal(p, n, DSUB), normal(p, l, DSUB))
+          for tag, (p, n, l) in {"ragged N": (3, 1037, 2),
+                                 "L=3 masked": (4, 5000, 3)}.items()))
+    # scalar_quantize: the chain's carrier, the standalone scalarq shape,
+    # every width at a ragged N with a constant problem (scale 1)
+    errs["scalar_quantize"] = check_scalar(
+        "chain carrier", normal(CLIENTS, DL_KEPT) * 1e-3, DL_BITS)
+    check_scalar("standalone", normal(CLIENTS, DL_TOTAL) * 1e-4, DL_BITS)
+    for bits in (*PACK_BITS, 3):
+        xe = normal(3, 1037)
+        xe[2] = 0.5
+        check_scalar("ragged N", xe, bits)
+    # pack_codes / unpack_codes: the standalone payload's codes, every
+    # width at a ragged count
+    codes = torch.randint(0, 1 << DL_BITS, (CLIENTS, DL_TOTAL),
+                          generator=gen, dtype=torch.int32).to(dev)
+    errs["pack_codes"] = errs["unpack_codes"] = check_pack("main", codes,
+                                                           DL_BITS)
+    for bits in PACK_BITS:
+        ce = torch.randint(0, 1 << bits, (3, 999), generator=gen,
+                           dtype=torch.int32).to(dev)
+        check_pack("count 999", ce, bits)
+    return errs
 
 
 def make_batches(make_data, seed, steps):
@@ -340,7 +489,7 @@ def phase_slice(seed, steps):
         f"{float(pmet['loss']):.6f} (|Δ| {dloss:.3e}), distortion "
         f"{float(met1['pq_distortion']):.4f} vs "
         f"{float(pmet['pq_distortion']):.4f}, max |Δparam| {dpar:.3e}")
-    if not dloss <= 1e-4:
+    if not dloss <= LOSS_ATOL:
         fail(f"step-1 loss differs from the plain step by {dloss}")
 
     steady = times[2:] if len(times) > 3 else times
@@ -350,30 +499,213 @@ def phase_slice(seed, steps):
         f"{len(steady)} steps, {len(times) - len(steady) + 1}.."
         f"{len(times)} (host clock + synchronize); first step "
         f"{times[0] * 1e3:.1f} ms")
-    return counts, step, state, batches
+
+    def run3():
+        st = state
+        for b in batches[:3]:
+            st, _ = step(st, b)
+    return counts, run3
 
 
-def phase_profile(step, state, batches):
-    """Device busy share of the step: CUDA kernel time over wall time in a
-    profiled window of 3 steps."""
+def phase_kmeans(gen):
+    """batched_kmeans at the FEMNIST grouping on "auto" (the kernels: 5
+    lloyd_update launches and 1 kmeans_assign) and on "torch" (none)."""
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels import _build, ops, ref
+
+    x = torch.randn((CLIENTS * R, M, DSUB), generator=gen).to("cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = km.batched_kmeans(x, L, ITERS, backend="auto")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _build.launch_counts()
+    want = {"lloyd_update": ITERS, "kmeans_assign": 1}
+    say("kmeans", f"batched_kmeans x {tuple(x.shape)} L={L} iters={ITERS} "
+        f"on 'auto': {ms:.3f} ms (host clock); launches {counts} (want "
+        f"{want})")
+    if counts != want:
+        fail(f"kmeans launch counts {counts} != {want}")
+    plain = km.batched_kmeans(x, L, ITERS, backend="torch")
+    torch.cuda.synchronize()
+    if _build.launch_counts() != want:
+        fail("the plain kmeans launched a kernel")
+    ties = ref.near_ties(x, *ops._pad_centroids(plain.centroids), TIE_RTOL) \
+        | ref.near_ties(x, *ops._pad_centroids(res.centroids), TIE_RTOL)
+    differ = res.codes.long() != plain.codes.long()
+    if bool((differ & ~ties).any()):
+        fail(f"kmeans: {int((differ & ~ties).sum())} codes differ from "
+             f"'torch' away from near-ties")
+    cerr = float((res.centroids - plain.centroids).abs().max())
+    rel = float(((res.distortion - plain.distortion).abs()
+                 / plain.distortion).max())
+    if not rel <= 1e-5:
+        fail(f"kmeans: distortion off by {rel} (relative) from 'torch'")
+    say("kmeans", f"vs 'torch': {int(differ.sum())} codes differ (all "
+        f"near-ties), max |Δcentroid| {cerr:.3e}, distortion "
+        f"{float(res.distortion.mean()):.6f} vs "
+        f"{float(plain.distortion.mean()):.6f} (max relative "
+        f"{rel:.3e})")
+    return counts
+
+
+def phase_slice2(seed, steps):
+    """The FEMNIST step with the chain downlink and a carried CutState."""
+    from repro_torch.kernels import _build
+    from repro_torch.core.compressors import CutState
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    models = {}
+    for backend, downlink in (("auto", DOWNLINK),
+                              ("torch", DOWNLINK_PLAIN)):
+        pq = PQConfig(num_subvectors=Q, num_clusters=L, num_groups=R,
+                      kmeans_iters=ITERS, backend=backend)
+        models[backend] = FemnistCNN(pq=pq, lam=LAM,
+                                     client_batch=CLIENT_BATCH,
+                                     downlink_compressor=downlink,
+                                     device="cuda", generator=gen)
+    model = models["auto"]
+    say("slice2", f"FemnistCNN as the slice, downlink "
+        f"{model.downlink_compressor.spec} (plain: "
+        f"{models['torch'].downlink_compressor.stages[1].backend}), "
+        f"CutState carried: step 1 cold ({ITERS} Lloyd iterations), later "
+        f"steps warm ({WARM_ITERS}); {steps} steps")
+    state0 = TrainState.create(dict(model.named_parameters()), sgd(LR))
+    batches = make_batches(make_federated_image_data, seed + 1, steps)
+
+    step = make_train_step(model, sgd(LR))
+    state, cut, losses, times, kept = state0, CutState(), [], [], []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, b, cut)
+        cut_in, cut = cut, met.pop("cut_state")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        if len(kept) < 2:
+            kept.append((state, cut_in, cut))
+    counts = _build.launch_counts()
+    want = {"lloyd_update": ITERS + WARM_ITERS * (steps - 1),
+            "pq_quantize": steps, "scalar_quantize": steps}
+    say("slice2", f"launches in {steps} steps: {counts} (want {want})")
+    if counts != want:
+        fail(f"slice-2 launch counts {counts} != {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"slice 2: non-finite loss: {losses}")
+    rounds = cut.quantizer.rounds.tolist()
+    if rounds != [steps] * CLIENTS:
+        fail(f"slice 2: the carried state counts rounds {rounds}")
+    say("slice2", "losses: " + " ".join(f"{v:.5f}" for v in losses))
+
+    # steps 1 and 2 again on the plain versions, from the same weights,
+    # batch and carried state; the plain steps launch no kernel
+    plain_step = make_train_step(models["torch"], sgd(LR))
+    for i, (s_in, c_in) in enumerate(((state0, CutState()),
+                                      (kept[0][0], kept[1][1]))):
+        pstate, pmet = plain_step(s_in, batches[i], c_in)
+        torch.cuda.synchronize()
+        if _build.launch_counts() != want:
+            fail("a plain slice-2 step launched a kernel")
+        dloss = abs(float(pmet["loss"]) - losses[i])
+        dpar = {part: max(float((kept[i][0].params[k] - pstate.params[k])
+                                .detach().abs().max())
+                          for k in pstate.params if k.startswith(part))
+                for part in ("client.", "server.")}
+        dcb = float((kept[i][2].quantizer.codebooks
+                     - pmet["cut_state"].quantizer.codebooks).abs().max())
+        say("slice2", f"step {i + 1} vs plain versions: loss {losses[i]:.6f}"
+            f" vs {float(pmet['loss']):.6f} (|Δ| {dloss:.3e}); max "
+            f"|Δparam| client {dpar['client.']:.3e}, server "
+            f"{dpar['server.']:.3e}; max |Δcodebook| {dcb:.3e}")
+        if not dloss <= (LOSS_ATOL if i == 0 else WARM_LOSS_ATOL):
+            fail(f"slice-2 step {i + 1} loss differs from the plain step by "
+                 f"{dloss}")
+
+    steady = times[2:] if len(times) > 3 else times
+    step_ms = statistics.median(steady) * 1e3
+    say("times", f"slice-2 step: median {step_ms:.3f} ms (min "
+        f"{min(steady) * 1e3:.3f}, max {max(steady) * 1e3:.3f}) over "
+        f"{len(steady)} steps, {len(times) - len(steady) + 1}.."
+        f"{len(times)} (host clock + synchronize); first step "
+        f"{times[0] * 1e3:.1f} ms")
+
+    def run3():
+        st, c = state, cut
+        for b in batches[:3]:
+            st, m = step(st, b, c)
+            c = m.pop("cut_state")
+    return counts, run3, model, batches[0]
+
+
+def phase_payload(model, batch):
+    """The slice's downlink payloads packed on the card: a cut cotangent of
+    the slice's batch, through the chain (its 8-bit codes of the kept
+    values, (10, 18432)) and through a standalone scalarq(bits=8) (codes
+    of the whole cotangent, (10, 184320)); each packed into 8-bit words and
+    unpacked."""
+    import torch.nn.functional as F
+    from repro_torch.core.compressors import (ScalarQuantCompressor,
+                                              make_compressor)
+    from repro_torch.kernels import _build, ops
+
+    cut = model.client_forward(batch["image"]).detach().requires_grad_()
+    loss = F.cross_entropy(model.server_logits(cut), batch["label"])
+    (g,) = torch.autograd.grad(loss, cut)
+    g = g.reshape(CLIENTS, CLIENT_BATCH, CUT_D)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    chain = make_compressor(DOWNLINK).compress(g).payload[1].codes
+    full = ScalarQuantCompressor(bits=DL_BITS).compress(g).payload.codes
+    full = full.reshape(CLIENTS, DL_TOTAL)
+    packed = {}
+    for tag, codes in (("chain", chain), ("scalarq", full)):
+        words = ops.pack_codes(codes, DL_BITS)
+        packed[tag] = (codes, words, ops.unpack_codes(words, codes.shape[1],
+                                                      DL_BITS))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = {"scalar_quantize": 2, "pack_codes": 2, "unpack_codes": 2}
+    say("payload", f"launches: {counts} (want {want})")
+    if counts != want:
+        fail(f"payload launch counts {counts} != {want}")
+    for tag, (codes, words, back) in packed.items():
+        check_pack(f"{tag} payload", codes, DL_BITS)
+        say("payload", f"{tag}: codes {tuple(codes.shape)} in "
+            f"[{int(codes.min())}, {int(codes.max())}] -> "
+            f"{words.numel() * 4} bytes ({codes.numel() * 4} as int32)")
+    return counts, full.contiguous(), packed["scalarq"][1]
+
+
+def phase_profile(tag, run3):
+    """Device busy share of a step: CUDA kernel time over wall time in a
+    profiled window of 3 steps (``run3`` runs them)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[:3]:
-            state, _ = step(state, b)
+        run3()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
-        say("times", "profiled step: device time not measured (the "
-            "profiler reported none)")
+        say("times", f"{tag}: profiled step: device time not measured (the "
+            f"profiler reported none)")
         return
-    say("times", f"profiled 3 steps: wall {wall_ms:.3f} ms, device kernels "
-        f"{dev_ms:.3f} ms in {sum(e.count for e in events) / 3:.0f} "
+    say("times", f"{tag}: profiled 3 steps: wall {wall_ms:.3f} ms, device "
+        f"kernels {dev_ms:.3f} ms in {sum(e.count for e in events) / 3:.0f} "
         f"launches per step: busy {dev_ms / wall_ms:.1%}, idle "
         f"{1 - dev_ms / wall_ms:.1%}")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -382,10 +714,14 @@ def phase_profile(step, state, batches):
             f"{e.count / 3:5.1f} launches/step  {e.key[:70]}")
 
 
-def phase_times(gen, counts, lloyd_err, pq_err):
+def phase_times(gen, counts, errs, payload_codes, payload_words):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
     from repro_torch.kernels.lloyd_update import lloyd_update_kernel
     from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+    from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
+                                                  scalar_quantize_kernel,
+                                                  unpack_codes_kernel)
 
     dev = torch.device("cuda")
     x = torch.zeros((CLIENTS * R, M_PAD, DSUB), device=dev)
@@ -397,40 +733,73 @@ def phase_times(gen, counts, lloyd_err, pq_err):
     xq = x[:, :M].contiguous()
     p = CLIENTS * R
 
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
     rows = []
     # lloyd_update: reads x, w, the codebook and mask; writes dsums, counts
-    nbytes = sum(t.numel() * t.element_size() for t in (x, w, cp, lmask)) \
-        + p * cp.shape[1] * (DSUB + 1) * 4
-    flops = p * M_PAD * (2 * L * DSUB + 3 * DSUB + 1)
     rows.append(("lloyd_update", "src/repro_torch/csrc/lloyd_update.cu",
-                 "src/repro/kernels/lloyd_update.py:87", lloyd_err,
+                 "src/repro/kernels/lloyd_update.py:87",
                  lambda: lloyd_update_kernel(x, w, cp, lmask),
                  lambda: ref.lloyd_update_ref(x, w, cp, lmask),
-                 nbytes, flops))
+                 nbytes(x, w, cp, lmask) + p * cp.shape[1] * (DSUB + 1) * 4,
+                 p * M_PAD * (2 * L * DSUB + 3 * DSUB + 1)))
     # pq_quantize: reads x and the codebook; writes z̃, residual, codes
-    nbytes = sum(t.numel() * t.element_size() for t in (xq, cp, lmask)) \
-        + 2 * xq.numel() * 4 + p * M * 4
-    flops = p * M * (2 * L * DSUB + DSUB)
     rows.append(("pq_quantize", "src/repro_torch/csrc/pq_quantize.cu",
-                 "src/repro/kernels/pq_quantize.py:55", pq_err,
+                 "src/repro/kernels/pq_quantize.py:55",
                  lambda: pq_quantize_kernel(xq, cp, lmask),
                  lambda: ref.pq_quantize_ref(xq, cp, lmask),
-                 nbytes, flops))
+                 nbytes(xq, cp, lmask) + 2 * xq.numel() * 4 + p * M * 4,
+                 p * M * (2 * L * DSUB + DSUB)))
+    # kmeans_assign: reads x and the codebook; writes codes and sqdist
+    rows.append(("kmeans_assign", "src/repro_torch/csrc/kmeans_assign.cu",
+                 "src/repro/kernels/kmeans_assign.py:58",
+                 lambda: kmeans_assign_kernel(xq, cp, lmask),
+                 lambda: ref.kmeans_assign_ref(xq, cp, lmask),
+                 nbytes(xq, cp, lmask) + 2 * p * M * 4,
+                 p * M * (2 * L * DSUB + 2 * DSUB)))
+    # scalar_quantize at the chain's carrier: reads x, lo, scale; writes
+    # codes and recon; a subtract, divide, round, two clamps, a multiply
+    # and an add per value
+    xs = torch.randn((CLIENTS, DL_KEPT), generator=gen).to(dev) * 1e-3
+    lo, scale = scalar_range(xs, DL_BITS)
+    rows.append(("scalar_quantize", "src/repro_torch/csrc/scalar_quant.cu",
+                 "src/repro/kernels/scalar_quant.py:49",
+                 lambda: scalar_quantize_kernel(xs, lo, scale, DL_BITS),
+                 lambda: ref.scalar_quantize_ref(xs, lo, scale, DL_BITS),
+                 nbytes(xs, lo, scale) + 2 * xs.numel() * 4,
+                 7 * xs.numel()))
+    # pack / unpack at the standalone scalarq payload: 4 bytes per code in
+    # or out, b/8 bytes per code the other way; a mask, shift and OR per code
+    rows.append(("pack_codes", "src/repro_torch/csrc/scalar_quant.cu",
+                 "src/repro/kernels/scalar_quant.py:86",
+                 lambda: pack_codes_kernel(payload_codes, DL_BITS),
+                 lambda: ref.pack_codes_ref(payload_codes, DL_BITS),
+                 nbytes(payload_codes, payload_words),
+                 3 * payload_codes.numel()))
+    rows.append(("unpack_codes", "src/repro_torch/csrc/scalar_quant.cu",
+                 "src/repro/kernels/scalar_quant.py:111",
+                 lambda: unpack_codes_kernel(payload_words, DL_TOTAL,
+                                             DL_BITS),
+                 lambda: ref.unpack_codes_ref(payload_words, DL_TOTAL,
+                                              DL_BITS),
+                 nbytes(payload_codes, payload_words),
+                 2 * payload_codes.numel()))
     kernels = []
-    for name, source, replaces, err, kern, plain, nbytes, flops in rows:
+    for name, source, replaces, kern, plain, nb, flops in rows:
         k_ms = device_ms(kern)
         p_ms = device_ms(plain)
         k_eager = eager_ms(kern)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nb, flops)
         say("times", f"{name}: kernel {k_ms * 1e3:.2f} us (device, CUDA "
             f"graph), {k_eager * 1e3:.2f} us per eager call; plain "
             f"{p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {b_by} "
-            f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+            f"({nb / 1e6:.2f} MB, {flops / 1e6:.1f} MOP)")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": counts.get(name, 0),
-                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
+                        "max_abs_err": errs[name], "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
     return kernels
 
@@ -440,6 +809,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
     args = ap.parse_args(argv)
+    if args.steps < 3:
+        ap.error("--steps must be at least 3")
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -448,13 +819,24 @@ def main(argv=None) -> int:
              f"a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
 
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
-    lloyd_err, pq_err = phase_parity(gen)
-    counts, step, state, batches = phase_slice(args.seed, args.steps)
-    phase_profile(step, state, batches)
-    kernels = phase_times(gen, counts, lloyd_err, pq_err)
+    errs = phase_parity(gen)
+    _, run3 = phase_slice(args.seed, args.steps)
+    phase_profile("slice", run3)
+    counts = phase_kmeans(gen)
+    slice2, run3, model, batch = phase_slice2(args.seed, args.steps)
+    phase_profile("slice 2", run3)
+    # each kernel's launches on the path this slice runs it on: the
+    # slice-2 step, the kmeans entry point, the payload packing
+    counts.update(slice2)
+    payload, codes, words = phase_payload(model, batch)
+    counts.update(pack_codes=payload["pack_codes"],
+                  unpack_codes=payload["unpack_codes"])
+    kernels = phase_times(gen, counts, errs, codes, words)
+    say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,11 +11,15 @@ backward: the forward saves the residual its fused encode produced, and the
 backward reuses it.
 
 z is (C, n, d), one PQ problem set per client (see ``core/quantizer.py``).
+The direction-agnostic hooks (any codec, the downlink, and the
+state-carrying uplink) live in ``core/compressors.py``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from typing import Optional
 
 from repro_torch.core.quantizer import PQConfig, quantize
 
@@ -50,3 +54,40 @@ def quantize_with_correction(z: torch.Tensor, lam,
                              cfg: PQConfig) -> torch.Tensor:
     """z̃ with the eq.-5 backward."""
     return quantize_with_correction_stats(z, lam, cfg)[0]
+
+
+class _QuantizeDownlink(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, z, cfg):
+        ctx.cfg = cfg
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        return quantize(g, ctx.cfg).dequantized.to(g.dtype), None
+
+
+def quantize_downlink(z: torch.Tensor, cfg: PQConfig) -> torch.Tensor:
+    """The downlink compressed by the grouped PQ: identity forward; the
+    backward pass quantizes the activation cotangent (C, n, d), per client,
+    before it reaches the client. ``core/compressors.compress_downlink``
+    is the general form (any codec)."""
+    return _QuantizeDownlink.apply(z, cfg)
+
+
+def quantize_with_stats(z: torch.Tensor, lam, cfg: PQConfig,
+                        generator: Optional[torch.Generator] = None):
+    """``quantize_with_correction`` plus non-differentiable stats for
+    logging: the per-client distortion (C,), and the message bits and
+    compression ratio of one client's n vectors. The seeding stays
+    deterministic: ``generator`` is not used, as the reference ignores its
+    key."""
+    del generator
+    z_tilde, distortion = quantize_with_correction_stats(z, lam, cfg)
+    n, d = z.shape[1], z.shape[-1]
+    return z_tilde, {
+        "pq_distortion": distortion,
+        "pq_message_bits": cfg.message_bits(n, d),
+        "pq_compression_ratio": cfg.compression_ratio(n, d),
+    }

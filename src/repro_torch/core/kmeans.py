@@ -13,11 +13,21 @@ Backend registry
                    any other device.
   * ``"auto"``  -- ``"cuda"`` for CUDA tensors, ``"torch"`` otherwise.
 
-A backend bundles the two primitives the quantizer runs:
+A backend bundles the three primitives the quantizer and ``kmeans`` run:
 
   * ``update(x, weights, cents) -> (dsums, counts)`` -- one Lloyd
     iteration's deviation-accumulated statistics.
   * ``encode(x, cents) -> (z̃, residual, codes)`` -- the fused final pass.
+  * ``assign_dist(x, cents) -> (codes, sqdist)`` -- the nearest centroid
+    and squared distance of every row, for ``kmeans``'s codes and
+    distortion (the ``kmeans_assign`` kernel on ``"cuda"``).
+
+Warm start: ``lloyd`` / ``batched_lloyd`` / ``kmeans`` take
+``init_centroids`` to resume from a previous round's codebooks instead of
+seeding (``core/quantizer.QuantizerState`` builds on it). Seeding is
+farthest-point without a generator and kmeans++ (D² sampling) with one;
+an explicit ``torch.Generator`` on the points' device replaces the
+reference's PRNG key (the two draw different numbers).
 
 Numerics (as in the reference): the centroid update accumulates deviations
 from the current centroid, ``c_new = c_old + Σ onehot·(x − c_old) / count``,
@@ -28,11 +38,17 @@ multiple carry weight 0.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops, ref
+
+
+class KMeansResult(NamedTuple):
+    centroids: torch.Tensor   # (..., L, D) in x.dtype
+    codes: torch.Tensor       # (..., N) int32
+    distortion: torch.Tensor  # (...) mean squared error per point (f32)
 
 
 class Backend(NamedTuple):
@@ -40,6 +56,7 @@ class Backend(NamedTuple):
     name: str
     update: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     encode: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    assign_dist: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _all_valid(c: torch.Tensor) -> torch.Tensor:
@@ -52,6 +69,11 @@ def _update_torch(x, weights, cents):
 
 def _encode_torch(x, cents):
     return ref.pq_quantize_ref(x, cents, _all_valid(cents))
+
+
+def _assign_dist_torch(x, cents):
+    codes, sqdist = ref.kmeans_assign_ref(x, cents, _all_valid(cents))
+    return codes.to(torch.int32), sqdist
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -71,9 +93,15 @@ def _encode_cuda(x, cents):
     return ops.pq_quantize(x, cents)
 
 
+def _assign_dist_cuda(x, cents):
+    _require_cuda(x)
+    return ops.kmeans_assign(x, cents)
+
+
 _REGISTRY: Dict[str, Backend] = {
-    "torch": Backend("torch", _update_torch, _encode_torch),
-    "cuda": Backend("cuda", _update_cuda, _encode_cuda),
+    "torch": Backend("torch", _update_torch, _encode_torch,
+                     _assign_dist_torch),
+    "cuda": Backend("cuda", _update_cuda, _encode_cuda, _assign_dist_cuda),
 }
 
 
@@ -102,10 +130,14 @@ def get_backend(name: str, device: torch.device) -> Backend:
 # Lloyd iterations
 # ---------------------------------------------------------------------------
 
-def _init_centroids(x: torch.Tensor, num_clusters: int) -> torch.Tensor:
-    """Deterministic farthest-point seeding on a strided subsample, per
-    problem. x (P, N, D) f32 -> (P, L, D). The reference's keyed
-    (kmeans++) seeding draws from ``jax.random`` and is not ported."""
+def _init_centroids(x: torch.Tensor, num_clusters: int,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Seeds on a strided subsample, per problem: x (P, N, D) f32 ->
+    (P, L, D). Without a generator, deterministic farthest-point (each next
+    seed the first point farthest from the seeds so far); with one,
+    kmeans++: each next seed drawn with probability ∝ its squared distance
+    to the seeds so far (floored at 1e-30, as the reference's logits)."""
     p, n, d = x.shape
     L = num_clusters
     m = min(n, max(4 * L, 256))
@@ -115,20 +147,40 @@ def _init_centroids(x: torch.Tensor, num_clusters: int) -> torch.Tensor:
     cents[:, 0] = xs[:, 0]
     mind = (xs - xs[:, :1]).square().sum(-1)
     for l in range(1, L):
-        c = xs[rows, mind.argmax(-1)]         # first maximum, as jnp.argmax
+        if generator is None:
+            idx = mind.argmax(-1)             # first maximum, as jnp.argmax
+        else:
+            idx = torch.multinomial(mind.clamp_min(1e-30), 1,
+                                    generator=generator)[:, 0]
+        c = xs[rows, idx]
         cents[:, l] = c
         mind = torch.minimum(mind, (xs - c[:, None]).square().sum(-1))
     return cents
 
 
 def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
-                  chunk: int = 4096, backend: str = "auto") -> torch.Tensor:
-    """Lloyd iterations over P problems from farthest-point seeds:
-    x (P, N, D) -> f32 (P, L, D)."""
+                  generator: Optional[torch.Generator] = None,
+                  chunk: int = 4096, backend: str = "auto",
+                  init_centroids: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Lloyd iterations over P problems: x (P, N, D) -> f32 (P, L, D).
+
+    ``init_centroids`` (P, L, D) warm-starts them from a previous round's
+    codebooks instead of seeding; ``num_iters=0`` then returns the
+    initializer unchanged (in f32)."""
     x = x.float()
-    p, n, _ = x.shape
+    p, n, d = x.shape
     L = num_clusters
     b = get_backend(backend, x.device)
+    if init_centroids is not None:
+        cents = init_centroids.float()
+        if cents.shape != (p, L, d):
+            raise ValueError(f"init_centroids {tuple(cents.shape)} != "
+                             f"{(p, L, d)}")
+    else:
+        cents = _init_centroids(x, L, generator)
+    if num_iters == 0:
+        return cents
     # pad N up to a multiple of chunk, as the reference's scan tiles do;
     # padded rows carry zero weight
     chunk = min(chunk, max(n, 1))
@@ -136,8 +188,6 @@ def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
     x_pad = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
     weights = (torch.arange(n + n_pad, device=x.device) < n).float() \
         .expand(p, -1).contiguous()
-
-    cents = _init_centroids(x, L)
     for _ in range(num_iters):
         dsums, counts = b.update(x_pad, weights, cents)
         # empty clusters keep their previous centroid
@@ -147,7 +197,46 @@ def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
 
 
 def lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
-          chunk: int = 4096, backend: str = "auto") -> torch.Tensor:
-    """One problem: x (N, D) -> f32 centroids (L, D)."""
-    return batched_lloyd(x[None], num_clusters, num_iters, chunk=chunk,
-                         backend=backend)[0]
+          generator: Optional[torch.Generator] = None, chunk: int = 4096,
+          backend: str = "auto",
+          init_centroids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One problem: x (N, D) -> f32 centroids (L, D); ``init_centroids``
+    (L, D) warm-starts it."""
+    init = None if init_centroids is None else init_centroids[None]
+    return batched_lloyd(x[None], num_clusters, num_iters,
+                         generator=generator, chunk=chunk, backend=backend,
+                         init_centroids=init)[0]
+
+
+def batched_kmeans(x: torch.Tensor, num_clusters: int, num_iters: int = 8,
+                   *, generator: Optional[torch.Generator] = None,
+                   chunk: int = 4096, backend: str = "auto",
+                   init_centroids: Optional[torch.Tensor] = None
+                   ) -> KMeansResult:
+    """Lloyd's algorithm with a fixed iteration count on P problems.
+
+    x (P, N, D), computed in f32 whatever its dtype. Returns
+    ``KMeansResult(centroids (P, L, D) in x.dtype, codes (P, N) int32,
+    distortion (P,))``: the codes and the mean squared distance per point
+    come from the backend's ``assign_dist`` (one ``kmeans_assign`` launch
+    on ``"cuda"``)."""
+    xf = x.float()
+    cents = batched_lloyd(xf, num_clusters, num_iters, generator=generator,
+                          chunk=chunk, backend=backend,
+                          init_centroids=init_centroids)
+    codes, sqdist = get_backend(backend, x.device).assign_dist(xf, cents)
+    distortion = sqdist.sum(-1) / max(x.shape[1], 1)
+    return KMeansResult(cents.to(x.dtype), codes, distortion)
+
+
+def kmeans(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
+           generator: Optional[torch.Generator] = None, chunk: int = 4096,
+           backend: str = "auto",
+           init_centroids: Optional[torch.Tensor] = None) -> KMeansResult:
+    """One problem: x (N, D) -> ``KMeansResult`` with centroids (L, D),
+    codes (N,) and a scalar distortion."""
+    init = None if init_centroids is None else init_centroids[None]
+    res = batched_kmeans(x[None], num_clusters, num_iters,
+                         generator=generator, chunk=chunk, backend=backend,
+                         init_centroids=init)
+    return KMeansResult(*(t[0] for t in res))

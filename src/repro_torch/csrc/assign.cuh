@@ -1,5 +1,5 @@
-// Nearest-centroid assignment shared by lloyd_update.cu and pq_quantize.cu,
-// so that both kernels pick the same code for the same row.
+// Nearest-centroid assignment shared by lloyd_update.cu, pq_quantize.cu and
+// kmeans_assign.cu, so that all three pick the same code for the same row.
 //
 // Score form, as the TPU kernels and the plain versions compute it:
 //   code = argmax_l (2·x·c_l − ‖c_l‖²)   over l with lmask[l] > 0,
@@ -46,9 +46,13 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
     xs[(e / d) * stride + e % d] = src[e];
 }
 
-__device__ __forceinline__ int assign_row(const float* xr, const float* cs,
-                                          const float* cn, const float* ms,
-                                          int l, int d) {
+// The row's code, and its best score in *best_score (kmeans_assign.cu turns
+// it into the squared distance ‖x‖² − best).
+__device__ __forceinline__ int assign_row_best(const float* xr,
+                                               const float* cs,
+                                               const float* cn,
+                                               const float* ms, int l, int d,
+                                               float* best_score) {
   float best = -INFINITY;
   int code = 0;
   for (int li = 0; li < l; ++li) {
@@ -61,7 +65,15 @@ __device__ __forceinline__ int assign_row(const float* xr, const float* cs,
       code = li;
     }
   }
+  *best_score = best;
   return code;
+}
+
+__device__ __forceinline__ int assign_row(const float* xr, const float* cs,
+                                          const float* cn, const float* ms,
+                                          int l, int d) {
+  float best;
+  return assign_row_best(xr, cs, cn, ms, l, d, &best);
 }
 
 }  // namespace repro_torch

@@ -1,7 +1,7 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled on its
-own by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the repo root
+Each ``csrc/<name>.cu`` exposes one or more plain C launchers and is
+compiled on its own by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the repo root
 (``.gitignore`` lists ``build/``). The library's file name carries a hash of
 its source, so an edited kernel is rebuilt and a stale one is never loaded.
 ``build`` starts one ``nvcc`` per source, all at once, and waits for them.
@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple
+from typing import Dict, Iterable, NamedTuple, Set, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,6 +40,7 @@ class BuildInfo(NamedTuple):
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_TYPED: Set[Tuple[str, str]] = set()     # (library, launcher) pairs typed
 _LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -102,12 +103,18 @@ def build(names: Iterable[str]) -> Dict[str, BuildInfo]:
 
 
 def load(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    """The kernel's library, built on first use, with ``fn`` typed."""
+    """The kernel's library, built on first use, with ``fn`` typed.
+
+    A library may hold several launchers: each one is typed the first time
+    it is asked for (untyped, ctypes would pass a pointer as a 32-bit C
+    ``int``), and never again."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))
+        _LIBS[name] = lib
+    if (name, fn) not in _TYPED:
         launcher = getattr(lib, fn)
         launcher.argtypes = list(argtypes)
         launcher.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _TYPED.add((name, fn))
     return lib

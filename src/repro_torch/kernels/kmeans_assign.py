@@ -1,0 +1,51 @@
+"""CUDA kernel: k-means assignment with squared distances.
+
+Twin of ``repro/kernels/kmeans_assign.py`` (the Pallas ``_assign_kernel``).
+The kernel is ``csrc/kmeans_assign.cu``; its plain version is
+``ref.kmeans_assign_ref``. For each of P problems and each row it returns
+
+    codes[i]  = argmax_l (2·x_i·c_l − ‖c_l‖²)       over valid centroids
+    sqdist[i] = max(‖x_i‖² − max_l (2·x_i·c_l − ‖c_l‖²), 0)
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
+it launches the kernel or raises. The kernel takes its codes from the same
+routine as ``lloyd_update`` and ``pq_quantize`` (``csrc/assign.cuh``); it
+agrees with the plain version but for near-ties, where the FMA order may
+pick the other code, and its distances to f32 rounding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.lloyd_update import check_cuda_inputs
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
+                         lmask: torch.Tensor):
+    """x (P, N, D), centroids (P, L, D), lmask (L,).
+
+    Returns (codes (P, N) int32, sqdist (P, N) f32)."""
+    if x.device.type == "cpu":
+        codes, sqdist = ref.kmeans_assign_ref(x, centroids, lmask)
+        return codes.to(torch.int32), sqdist
+    check_cuda_inputs("kmeans_assign", x, centroids, lmask)
+    p, n, d = x.shape
+    l = centroids.shape[1]
+    lib = _build.load("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
+    codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
+    sqdist = torch.empty((p, n), device=x.device, dtype=torch.float32)
+    rc = lib.kmeans_assign_launch(
+        x.data_ptr(), centroids.data_ptr(), lmask.data_ptr(),
+        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kmeans_assign: launch failed with CUDA error "
+                           f"{rc}")
+    _build.count("kmeans_assign")
+    return codes, sqdist

@@ -1,14 +1,15 @@
 """Public wrappers around the kernels (twin of ``repro/kernels/ops.py``).
 
-They take any L and pad the codebook to a multiple of 8 centroids, masked
-by ``lmask`` so that a padded centroid never wins (it scores ``NEG``), as
-the reference's ``_pad_centroids`` does. Rows need no padding: the CUDA
+The k-means wrappers (``kmeans_assign``, ``pq_quantize``,
+``lloyd_update``) take any L and pad the codebook to a multiple of 8
+centroids, masked by ``lmask`` so that a padded centroid never wins (it
+scores ``NEG``), as the reference's ``_pad_centroids`` does. Rows need no padding: the CUDA
 kernels mask their ragged last tile themselves, and rows that the caller
 pads (``core.kmeans.lloyd`` pads to a chunk multiple) carry weight 0.
 
-Every input has a leading problem axis P (clients x codebook groups): the
-reference vmaps one problem per call, the kernels take all of them in one
-launch.
+Every input has a leading problem axis P (clients x codebook groups for
+k-means, clients for scalar quantization and packing): the reference
+vmaps one problem per call, the kernels take all of them in one launch.
 """
 
 from __future__ import annotations
@@ -17,8 +18,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import lloyd_update_kernel
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
+                                              scalar_quantize_kernel,
+                                              unpack_codes_kernel)
 
 
 def _pad_centroids(c: torch.Tensor, lane: int = 8):
@@ -28,6 +33,15 @@ def _pad_centroids(c: torch.Tensor, lane: int = 8):
     lmask = (torch.arange(l + pad, device=c.device) < l).float()
     cp = torch.nn.functional.pad(c.float(), (0, 0, 0, pad))
     return cp.contiguous(), lmask
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
+    """Nearest centroid and squared distance of every row.
+
+    x (P, N, D) f32; centroids (P, L, D). Returns (codes (P, N) int32,
+    sqdist (P, N) f32 = max(‖x‖² − best score, 0))."""
+    cp, lmask = _pad_centroids(centroids)
+    return kmeans_assign_kernel(x.float().contiguous(), cp, lmask)
 
 
 def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
@@ -54,3 +68,27 @@ def lloyd_update(x: torch.Tensor, centroids: torch.Tensor,
                                         weights.float().contiguous(), cp,
                                         lmask)
     return dsums[:, :l], counts[:, :l]
+
+
+def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
+                    bits: int):
+    """Fused uniform b-bit quantize + dequantize, one range per problem.
+
+    x (P, N) any float dtype; lo and scale (P,). Returns (codes (P, N)
+    int32 in [0, 2^bits), recon (P, N) f32)."""
+    return scalar_quantize_kernel(x.float().contiguous(),
+                                  lo.float().contiguous(),
+                                  scale.float().contiguous(), bits)
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack each problem's codes (P, N) at ``bits`` in {1, 2, 4, 8, 16} bits
+    into little-endian 32-bit words: (P, ⌈N·bits/32⌉) int32 bit patterns,
+    byte for byte the wire's LSB-first stream of each problem."""
+    return pack_codes_kernel(codes.to(torch.int32).contiguous(), bits)
+
+
+def unpack_codes(words: torch.Tensor, count: int, bits: int) -> torch.Tensor:
+    """Inverse of ``pack_codes``: (P, W) words -> (P, count) int32 codes."""
+    return unpack_codes_kernel(words.to(torch.int32).contiguous(), count,
+                               bits)

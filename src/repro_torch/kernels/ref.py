@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the kernels (twin of ``repro/kernels/ref.py``).
 
-The CPU tests run these, the ``"torch"`` quantizer backend runs them on any
-device, and ``chip_smoke.py`` holds each CUDA kernel against them on the
-card. They carry a leading problem axis: ``x`` is ``(..., N, D)``,
+The CPU tests run these, the ``"torch"`` backends run them on any device,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+They carry a leading problem axis: ``x`` is ``(..., N, D)``,
 ``centroids`` ``(..., L, D)``, ``weights`` ``(..., N)``; ``lmask`` is one
-``(L,)`` mask shared by every problem (1.0 = valid centroid).
+``(L,)`` mask shared by every problem (1.0 = valid centroid). The scalar
+quantizer and the packers take ``(P, N)`` values or codes, one range or
+one stream of words per problem.
 
 Assignment is written in the score form the kernels compute,
 ``argmax_l (2·x·c_l − ‖c_l‖²)`` -- the argmin of ``‖x − c_l‖²`` without
@@ -59,6 +61,54 @@ def pq_quantize_ref(x: torch.Tensor, centroids: torch.Tensor,
     zt = _gather_rows(centroids.float(), codes)
     resid = x.float() - zt
     return zt.to(x.dtype), resid, codes.to(torch.int32)
+
+
+def scalar_quantize_ref(x: torch.Tensor, lo: torch.Tensor,
+                        scale: torch.Tensor, bits: int):
+    """Uniform b-bit quantize + dequantize of P problems, each with its own
+    range: x (P, N) f32, lo and scale (P,) f32.
+
+    codes = clip(round((x − lo)/scale), 0, 2^b − 1) with half-to-even
+    rounding (int32); recon = lo + codes·scale (f32), a multiply and then an
+    add, each rounded on its own, as the reference's jnp formula."""
+    levels = float((1 << bits) - 1)
+    lo_ = lo.float().unsqueeze(-1)
+    scale_ = scale.float().unsqueeze(-1)
+    codes = torch.round((x.float() - lo_) / scale_).clamp(0.0, levels)
+    return codes.to(torch.int32), lo_ + codes * scale_
+
+
+def _check_pack_bits(bits: int) -> int:
+    if bits not in (1, 2, 4, 8, 16):
+        raise ValueError(f"packing needs bits in {{1, 2, 4, 8, 16}}, got "
+                         f"{bits}")
+    return 32 // bits
+
+
+def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack P streams of codes (P, N) at ``bits`` bits each into
+    little-endian 32-bit words, code j of a word at bits [j·b, (j+1)·b);
+    each stream is padded with 0 to whole words. Returns (P, ⌈N·b/32⌉)
+    int32 holding the words' bit patterns. A code keeps its low ``bits``
+    bits, as the wire's LSB-first bit stream does."""
+    per_word = _check_pack_bits(bits)
+    p, n = codes.shape
+    words = -(-n // per_word)
+    c = F.pad(codes.long() & ((1 << bits) - 1), (0, words * per_word - n))
+    shifts = torch.arange(per_word, device=codes.device) * bits
+    w = (c.reshape(p, words, per_word) << shifts).sum(-1)   # disjoint bits
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_codes_ref(words: torch.Tensor, count: int,
+                     bits: int) -> torch.Tensor:
+    """Inverse of ``pack_codes_ref``: (P, W) words -> (P, count) int32."""
+    per_word = _check_pack_bits(bits)
+    p = words.shape[0]
+    shifts = torch.arange(per_word, device=words.device) * bits
+    w = words.long() & 0xFFFFFFFF
+    codes = (w.unsqueeze(-1) >> shifts) & ((1 << bits) - 1)
+    return codes.reshape(p, -1)[:, :count].to(torch.int32)
 
 
 def lloyd_update_ref(x: torch.Tensor, weights: torch.Tensor,

@@ -4,7 +4,9 @@ Client: Conv(32, 3x3) + ReLU + Conv(64, 3x3) + ReLU + MaxPool(2) + Flatten,
 so the cut activation has d = 12·12·64 = 9216 (the paper's d). Server:
 Dense(128) + ReLU + Dense(62). The grouped PQ with the eq.-5 corrected
 backward runs at the cut, with per-client codebooks when ``client_batch``
-splits the batch.
+splits the batch; a ``downlink_compressor`` squeezes the server->client
+gradient in the backward pass, and a ``CutState`` carries the codebooks
+(warm start) and error-feedback memory from one step to the next.
 
 Layouts: the public batch keeps the reference's NHWC images; the
 convolutions run in PyTorch's NCHW, and the cut is flattened in NHWC order,
@@ -27,31 +29,68 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.compressors import (CutCompressor, CutState,
+                                          PQCompressor, compress_downlink,
+                                          compress_downlink_keyed,
+                                          compress_with_correction_carry,
+                                          make_compressor)
 from repro_torch.core.correction import quantize_with_correction_stats
 from repro_torch.core.quantizer import PQConfig
 
 
 def _maybe_quantize(x: torch.Tensor, pq: Optional[PQConfig], lam,
                     quantize: bool, client_batch: int = 0,
-                    lam_override=None):
-    """Apply the cut-layer PQ per client: the batch is split into cohorts of
-    ``client_batch`` examples, each clustered with its own codebooks, when
+                    lam_override=None,
+                    downlink: Optional[CutCompressor] = None, *,
+                    key: Optional[torch.Generator] = None,
+                    cut_state: Optional[CutState] = None):
+    """Apply the cut-layer codecs per client: the batch is split into
+    cohorts of ``client_batch`` examples, each with its own codebooks, when
     ``client_batch`` divides the batch into more than one cohort; otherwise
-    the whole batch is one client (as the reference decides)."""
+    the whole batch is one client (as the reference decides).
+
+    ``downlink`` compresses the server->client gradient cotangent in the
+    backward pass, after the uplink's codec, so the eq.-5 correction adds
+    λ·residual to the compressed cotangent; ``None`` or ``"none"`` leaves
+    the backward pass bitwise untouched. ``key``, a ``torch.Generator`` on
+    the cut's device, makes a scalarq downlink round stochastically.
+    ``cut_state`` switches the uplink to the state-carrying hook (warm
+    start, optional error feedback); the new state comes back under
+    ``stats["cut_state"]``, with its EF memory in the cut's (B, d) layout."""
     if lam_override is not None:
         lam = lam_override
-    if not quantize or pq is None:
+    has_dl = quantize and downlink is not None and downlink.name != "none"
+    if not quantize or (pq is None and not has_dl):
         return x, {}
     b = x.shape[0]
     per_client = bool(client_batch and b % client_batch == 0
                       and b > client_batch)
     clients = b // client_batch if per_client else 1
-    zt, dist = quantize_with_correction_stats(
-        x.reshape(clients, b // clients, x.shape[-1]), lam, pq)
-    return zt.reshape(x.shape), {
-        "pq_distortion": dist.mean(),
-        "pq_compression_ratio": float(pq.compression_ratio(b, x.shape[-1])),
-    }
+    zt = x.reshape(clients, b // clients, x.shape[-1])
+    stats = {}
+    if pq is not None:
+        if cut_state is not None:
+            if cut_state.ef_memory is not None and \
+                    cut_state.ef_memory.shape == x.shape:
+                cut_state = cut_state._replace(
+                    ef_memory=cut_state.ef_memory.reshape(zt.shape))
+            zt, dist, new_state = compress_with_correction_carry(
+                zt, lam, cut_state, PQCompressor(pq))
+            if new_state.ef_memory is not None:
+                new_state = new_state._replace(
+                    ef_memory=new_state.ef_memory.reshape(x.shape))
+            stats["cut_state"] = new_state
+        else:
+            zt, dist = quantize_with_correction_stats(zt, lam, pq)
+        stats.update({
+            "pq_distortion": dist.mean(),
+            "pq_compression_ratio": float(pq.compression_ratio(
+                b, x.shape[-1])),
+        })
+    if has_dl:
+        zt = compress_downlink(zt, downlink) if key is None \
+            else compress_downlink_keyed(zt, key, downlink)
+    return zt.reshape(x.shape), stats
 
 
 class FemnistCNN(nn.Module):
@@ -67,14 +106,16 @@ class FemnistCNN(nn.Module):
                  lam: float = 0.0, client_batch: int = 0,
                  downlink_compressor=None, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
+        """``downlink_compressor`` is a ``CutCompressor`` or a spec string
+        (``core/compressors.make_compressor``; a bare ``"pq"`` wraps
+        ``pq``)."""
         super().__init__()
-        if downlink_compressor is not None:
-            raise NotImplementedError(
-                "downlink compression is not ported yet (ROADMAP A4)")
         self.num_classes = num_classes
         self.pq = pq
         self.lam = lam
         self.client_batch = client_batch
+        self.downlink_compressor = make_compressor(downlink_compressor,
+                                                   pq=pq)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
 
@@ -111,17 +152,23 @@ class FemnistCNN(nn.Module):
         return h @ sp["dense2_w"] + sp["dense2_b"]
 
     def forward(self, batch: Mapping[str, torch.Tensor], *,
-                quantize: bool = True, lam_override=None, key=None,
-                cut_state=None):
-        if key is not None or cut_state is not None:
-            raise NotImplementedError(
-                "per-step keys and cut state are not ported yet (ROADMAP A4)")
+                quantize: bool = True, lam_override=None,
+                key: Optional[torch.Generator] = None,
+                cut_state: Optional[CutState] = None):
         acts = self.client_forward(batch["image"])
         acts, stats = _maybe_quantize(acts, self.pq, self.lam, quantize,
-                                      self.client_batch, lam_override)
+                                      self.client_batch, lam_override,
+                                      self.downlink_compressor, key=key,
+                                      cut_state=cut_state)
         logits = self.server_logits(acts)
         ce = F.cross_entropy(logits, batch["label"])
         return ce, dict(stats, ce=ce.detach())
+
+    @torch.no_grad()
+    def accuracy(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Top-1 accuracy of the uncompressed forward pass."""
+        logits = self.server_logits(self.client_forward(batch["image"]))
+        return (logits.argmax(-1) == batch["label"]).float().mean()
 
 
 def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]]

@@ -18,6 +18,7 @@ from repro.core.quantizer import PQConfig as JPQConfig
 from repro.data.synthetic import make_federated_image_data as j_image_data
 from repro.models.paper_models import FemnistCNN as JFemnistCNN
 from repro.optim import sgd as jsgd
+from repro_torch.core.compressors import CutState
 from repro_torch.core.fedlite import TrainState, make_train_step
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.data.synthetic import make_federated_image_data
@@ -152,6 +153,13 @@ def test_loss_matches_jax(quantize):
         assert met_t["pq_compression_ratio"] == met_j["pq_compression_ratio"]
 
 
+def test_accuracy_matches_jax():
+    jm, tm, params = _models()
+    b = _jax_batch(4, 16, clients=2)
+    acc = tm.accuracy(_torch_batch(b))
+    assert float(acc) == float(jm.accuracy(params, b))
+
+
 def test_per_client_split_condition_matches_reference():
     """At batch == client_batch the whole batch is one client, as in the
     reference (paper_models.py:59-60); at 2x it is two."""
@@ -165,17 +173,25 @@ def test_per_client_split_condition_matches_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A4"):
-        FemnistCNN(downlink_compressor="topk", device=CPU)
-    tm = FemnistCNN(device=CPU)
-    b = _torch_batch(_jax_batch(0, 2))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tm(b, cut_state=object())
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_train_step(tm, sgd(LR), step_key=0)
+    """What still raises: the wire codec (ROADMAP A9), and a cut state with
+    microbatches, which the reference refuses too. The downlink, step keys
+    and cut state themselves run."""
+    tm = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=2), lam=1e-4,
+                    downlink_compressor="topk(k=0.1)", device=CPU)
+    assert tm.downlink_compressor.spec == "topk(k=0.1)"
+    with pytest.raises(NotImplementedError, match="A9"):
+        tm.downlink_compressor.wire_payload(
+            tm.downlink_compressor.compress(torch.ones((1, 2, 8))))
+    b = _torch_batch(_jax_batch(0, 4))
     state = TrainState.create(dict(tm.named_parameters()), sgd(LR))
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_train_step(tm, sgd(LR))(state, b, cut_state=object())
+    with pytest.raises(ValueError, match="microbatches"):
+        make_train_step(tm, sgd(LR), microbatches=2)(state, b,
+                                                     cut_state=CutState())
+    state, met = make_train_step(tm, sgd(LR), step_key=0)(
+        state, b, cut_state=CutState())
+    assert np.isfinite(float(met["loss"]))
+    assert met["cut_state"].quantizer.rounds.tolist() == [1]
+    assert 0.0 <= float(tm.accuracy(b)) <= 1.0
 
 
 # ---------------------------------------------------------------------------

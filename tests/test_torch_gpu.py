@@ -65,3 +65,60 @@ def test_pq_quantize_kernel_matches_plain_on_card():
     assert not bool((~same & ~ties).any())
     assert torch.equal(zt[same], zt_r[same])
     assert torch.equal(resid[same], resid_r[same])
+
+
+@pytest.mark.gpu
+def test_kmeans_assign_kernel_matches_plain_on_card():
+    """Codes equal but for near-ties; squared distances within
+    1e-5·(1 + ‖x‖²) (ragged N, L=3 masked in a codebook padded to 8)."""
+    dev = _cuda_or_skip()
+    x, c = _inputs(23, dev, 4, 3001, 8, 3)
+    codes, sq = ops.kmeans_assign(x, c)
+    cp, lmask = ops._pad_centroids(c)
+    codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
+    ties = ref.near_ties(x, cp, lmask)
+    assert codes.dtype == torch.int32 and int(codes.max()) <= 2
+    assert not bool(((codes != codes_r) & ~ties).any())
+    tol = 1e-5 * (1 + x.square().sum(-1))
+    assert bool(((sq - sq_r).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 4, 8, 16])
+def test_scalar_quantize_kernel_is_the_plain_version_on_card(bits):
+    """Codes and recon bitwise those of the plain version (no FMA
+    contraction, half-to-even rounding), per-problem ranges, ragged N."""
+    dev = _cuda_or_skip()
+    r = np.random.default_rng(24)
+    x = torch.from_numpy(r.standard_normal((3, 4097)).astype(np.float32))
+    x = x.to(dev)
+    lo = x.amin(-1)
+    scale = (x.amax(-1) - lo) / ((1 << bits) - 1)
+    codes, recon = ops.scalar_quantize(x, lo, scale, bits)
+    codes_r, recon_r = ref.scalar_quantize_ref(x, lo, scale, bits)
+    assert torch.equal(codes, codes_r) and torch.equal(recon, recon_r)
+
+
+def _wire_stream(codes: np.ndarray, bits: int) -> bytes:
+    """The wire format's LSB-first bit stream of ``codes`` at ``bits``."""
+    flat = codes.reshape(-1).astype(np.uint32)
+    bitmat = (flat[:, None] >> np.arange(bits, dtype=np.uint32)) & 1
+    return np.packbits(bitmat.astype(np.uint8).reshape(-1),
+                       bitorder="little").tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
+def test_pack_unpack_kernels_match_plain_and_wire_on_card(bits):
+    dev = _cuda_or_skip()
+    r = np.random.default_rng(bits)
+    codes = r.integers(0, 1 << bits, size=(3, 999)).astype(np.int32)
+    words = ops.pack_codes(torch.from_numpy(codes).to(dev), bits)
+    assert torch.equal(words.cpu(), ref.pack_codes_ref(
+        torch.from_numpy(codes), bits))
+    host = words.cpu().numpy().view(np.uint32).astype("<u4")
+    for p in range(3):
+        stream = _wire_stream(codes[p], bits)
+        assert host[p].tobytes()[:len(stream)] == stream
+    back = ops.unpack_codes(words, 999, bits)
+    assert np.array_equal(back.cpu().numpy(), codes)

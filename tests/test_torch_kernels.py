@@ -11,6 +11,8 @@ The CUDA kernels themselves run only on a card: ``test_torch_gpu.py``.
 """
 
 import ast
+import ctypes
+import ctypes.util
 from pathlib import Path
 
 import jax
@@ -19,14 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.federated.wire import _pack_codes as wire_pack_codes
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import (lloyd_update_in_kernel_order,
                                               lloyd_update_kernel)
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
+                                              scalar_quantize_kernel,
+                                              unpack_codes_kernel)
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 
@@ -201,6 +208,117 @@ def test_pad_centroids_masks_the_padding():
     assert float(cp[:, 3:].abs().max()) == 0.0
 
 
+# (n, l): a ragged N against JAX's 64-row blocks; L=3 padded to 8, masked
+@pytest.mark.parametrize("n,l", [(200, 2), (301, 3), (64, 16)])
+def test_kmeans_assign_matches_jax(n, l):
+    """Codes equal but for near-ties (none at these inputs); squared
+    distances within 1e-5·(1 + ‖x‖²), the f32 rounding of ‖x‖² − best."""
+    x, c = _inputs(n + l, 2, n, 8, l)
+    codes, sq = tops.kmeans_assign(_t(x), _t(c))
+    assert codes.dtype == torch.int32 and sq.dtype == torch.float32
+    cp, lmask = tops._pad_centroids(_t(c))
+    assert not bool(tref.near_ties(_t(x), cp, lmask).any())
+    for p in range(2):
+        codes_k, sq_k = jops.kmeans_assign(jnp.asarray(x[p]),
+                                           jnp.asarray(c[p]), block_n=64,
+                                           interpret=True)
+        np.testing.assert_array_equal(codes[p].numpy(), np.asarray(codes_k))
+        tol = 1e-5 * (1 + (x[p] ** 2).sum(-1))
+        assert (np.abs(sq[p].numpy() - np.asarray(sq_k)) <= tol).all()
+
+
+# ---------------------------------------------------------------------------
+# scalar_quantize, pack_codes and unpack_codes
+# ---------------------------------------------------------------------------
+
+def _scalar_range(x, bits):
+    """The scalarq compressor's per-row range: lo = min, scale = (max −
+    min)/(2^b − 1) (1 where max == min), in f32."""
+    lo = x.min(-1)
+    scale = (x.max(-1) - lo) / np.float32((1 << bits) - 1)
+    return lo, np.where(scale > 0, scale, np.float32(1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,bits", [(999, 8), (64, 1), (257, 4), (40, 16)])
+def test_scalar_quantize_matches_jax(n, bits):
+    """Codes bitwise equal to the Pallas kernel (interpret mode) and to the
+    jnp formula clip(round((x − lo)/scale), 0, 2^b − 1); recon within
+    1e-6 of both."""
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    x[2] = 0.5                                   # a constant row: scale 1
+    lo, scale = _scalar_range(x, bits)
+    codes, recon = tops.scalar_quantize(_t(x), _t(lo), _t(scale), bits)
+    assert codes.dtype == torch.int32 and recon.dtype == torch.float32
+    levels = (1 << bits) - 1
+    for p in range(3):
+        codes_k, recon_k = jops.scalar_quantize(
+            jnp.asarray(x[p][None]), jnp.asarray(lo[p]),
+            jnp.asarray(scale[p]), bits, block_n=64, interpret=True)
+        t = (jnp.asarray(x[p]) - lo[p]) / scale[p]
+        codes_j = jnp.clip(jnp.round(t), 0, levels).astype(jnp.int32)
+        recon_j = lo[p] + codes_j.astype(jnp.float32) * scale[p]
+        np.testing.assert_array_equal(codes[p].numpy(),
+                                      np.asarray(codes_k)[0])
+        np.testing.assert_array_equal(codes[p].numpy(), np.asarray(codes_j))
+        for r in (np.asarray(recon_k)[0], np.asarray(recon_j)):
+            np.testing.assert_allclose(recon[p].numpy(), r, rtol=0,
+                                       atol=1e-6)
+    assert int(codes.min()) >= 0 and int(codes.max()) <= levels
+    np.testing.assert_array_equal(codes[2].numpy(), 0)
+
+
+def test_scalar_quantize_rounds_half_to_even():
+    x = np.array([[0.5, 1.5, 2.5, 3.5, 254.5, 300.0, -2.0]], np.float32)
+    codes, recon = tref.scalar_quantize_ref(_t(x), torch.zeros(1),
+                                            torch.ones(1), 8)
+    np.testing.assert_array_equal(codes.numpy(), [[0, 2, 2, 4, 254, 255, 0]])
+    np.testing.assert_array_equal(recon.numpy(),
+                                  [[0, 2, 2, 4, 254, 255, 0]])
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 16])
+def test_pack_codes_matches_wire_and_jax(bits):
+    """Each problem's words are, as little-endian bytes, the wire's
+    LSB-first stream, and the words of the Pallas pack kernel (interpret
+    mode); the stream of a ragged count (999) is padded to whole words."""
+    r = np.random.default_rng(bits)
+    codes = r.integers(0, 1 << bits, size=(2, 999)).astype(np.int32)
+    words = tops.pack_codes(_t(codes), bits)
+    assert words.shape == (2, -(-999 * bits // 32))
+    assert words.dtype == torch.int32
+    for p in range(2):
+        host = wire_pack_codes(codes[p].astype(np.uint32), bits)
+        mine = words[p].numpy().view(np.uint32)
+        assert mine.astype("<u4").tobytes()[:len(host)] == host
+        dev = np.asarray(jops.pack_codes(jnp.asarray(codes[p]), bits,
+                                         block_n=64, interpret=True))
+        np.testing.assert_array_equal(mine, dev)
+    back = tops.unpack_codes(words, 999, bits)
+    np.testing.assert_array_equal(back.numpy(), codes)
+    for p in range(2):
+        np.testing.assert_array_equal(
+            back[p].numpy(),
+            np.asarray(jops.unpack_codes(jnp.asarray(words[p].numpy()
+                                                     .view(np.uint32)),
+                                         999, bits, block_n=64,
+                                         interpret=True)))
+
+
+def test_pack_codes_pads_and_rejects_widths():
+    codes = torch.tensor([[1, 2, 3]], dtype=torch.int32)
+    words = tref.pack_codes_ref(codes, 8)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32),
+                                  [[0x030201]])
+    top = tref.pack_codes_ref(torch.full((1, 2), 0xFFFF, dtype=torch.int32),
+                              16)
+    np.testing.assert_array_equal(top.numpy(), [[-1]])  # 0xFFFFFFFF
+    np.testing.assert_array_equal(tref.unpack_codes_ref(top, 2, 16).numpy(),
+                                  [[0xFFFF, 0xFFFF]])
+    for bad in (3, 32):
+        with pytest.raises(ValueError, match="bits"):
+            tops.pack_codes(codes, bad)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: the plain version on CPU tensors, the kernel or an error on CUDA
 # ---------------------------------------------------------------------------
@@ -217,7 +335,41 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     assert torch.equal(ds, ds_r) and torch.equal(ct, ct_r)
     assert torch.equal(zt, zt_r) and torch.equal(resid, resid_r)
     assert torch.equal(codes, codes_r)
+    codes_a, sq_a = kmeans_assign_kernel(_t(x), _t(c), lmask)
+    codes_ar, sq_ar = tref.kmeans_assign_ref(_t(x), _t(c), lmask)
+    assert torch.equal(codes_a, codes_ar.to(torch.int32))
+    assert torch.equal(sq_a, sq_ar)
+    v = _t(x[:, :, 0])
+    lo, scale = v.amin(-1), torch.full((3,), 0.1)
+    q, rec = scalar_quantize_kernel(v, lo, scale, 4)
+    q_r, rec_r = tref.scalar_quantize_ref(v, lo, scale, 4)
+    assert torch.equal(q, q_r) and torch.equal(rec, rec_r)
+    words = pack_codes_kernel(q, 4)
+    assert torch.equal(words, tref.pack_codes_ref(q, 4))
+    assert torch.equal(unpack_codes_kernel(words, 40, 4), q)
     assert _build.launch_counts() == {}
+
+
+def test_load_types_every_launcher_once(monkeypatch):
+    """One library with several launchers: each one asked for gets its
+    argtypes and restype the first time, and keeps them."""
+    libc = ctypes.util.find_library("c")
+    assert libc, "no C library to stand in for a kernel library"
+    monkeypatch.setattr(_build, "build", lambda names: {
+        n: _build.BuildInfo(Path(libc), 0.0, "") for n in names})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_TYPED", set())
+    lib = _build.load("fake", "labs", [ctypes.c_long])
+    assert _build.load("fake", "strlen", [ctypes.c_char_p]) is lib
+    assert lib.labs.argtypes == [ctypes.c_long]
+    assert lib.strlen.argtypes == [ctypes.c_char_p]
+    assert lib.labs.restype is ctypes.c_int
+    assert lib.strlen.restype is ctypes.c_int
+    assert lib.labs(-7) == 7 and lib.strlen(b"kernel") == 6
+    # asked for again, a launcher is not typed anew
+    _build.load("fake", "labs", [ctypes.c_void_p])
+    assert lib.labs.argtypes == [ctypes.c_long]
+    assert _build._TYPED == {("fake", "labs"), ("fake", "strlen")}
 
 
 def test_kernel_libraries_are_named_by_their_sources():
@@ -225,6 +377,9 @@ def test_kernel_libraries_are_named_by_their_sources():
     assert path.parent == REPO_ROOT / "build" / "repro_torch"
     assert path.name.startswith("liblloyd_update-") and path.suffix == ".so"
     assert path != _build.library_path("pq_quantize")
+    for name in ("kmeans_assign", "scalar_quant"):
+        assert (_build.CSRC / f"{name}.cu").exists()
+        assert _build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

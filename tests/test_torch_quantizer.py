@@ -74,6 +74,68 @@ def test_lloyd_empty_cluster_keeps_its_centroid():
     np.testing.assert_array_equal(cents.numpy(), np.asarray(ref))
 
 
+def test_lloyd_warm_start_matches_jax():
+    """``init_centroids`` resumes Lloyd from a given codebook (no seeding);
+    0 iterations return it unchanged."""
+    x = _acts(17, 3, 400, 8)
+    init = _acts(18, 3, 4, 8)
+    cents = tkm.batched_lloyd(torch.from_numpy(x), 4, 3, backend="torch",
+                              init_centroids=torch.from_numpy(init))
+    ref = jkm.batched_lloyd(jnp.asarray(x), 4, 3, backend="jnp",
+                            init_centroids=jnp.asarray(init))
+    np.testing.assert_allclose(cents.numpy(), np.asarray(ref), **TOL)
+    same = tkm.lloyd(torch.from_numpy(x[0]), 4, 0,
+                     init_centroids=torch.from_numpy(init[0]))
+    np.testing.assert_array_equal(same.numpy(), init[0])
+    with pytest.raises(ValueError, match="init_centroids"):
+        tkm.batched_lloyd(torch.from_numpy(x), 3, 1,
+                          init_centroids=torch.from_numpy(init))
+
+
+@pytest.mark.parametrize("n,l,iters", [(300, 4, 5), (1000, 2, 3)])
+def test_batched_kmeans_matches_jax(n, l, iters):
+    """Centroids and codes as the "jnp" backend's; the distortion (from
+    ``assign_dist``: ‖x‖² − best score here, the direct ‖x − c‖² there)
+    within 1e-5 relative."""
+    x = _acts(n + l, 3, n, 8)
+    res = tkm.batched_kmeans(torch.from_numpy(x), l, iters, backend="torch")
+    assert res.codes.dtype == torch.int32 and res.distortion.shape == (3,)
+    for p in range(3):
+        ref = jkm.kmeans(jnp.asarray(x[p]), l, iters, backend="jnp")
+        np.testing.assert_allclose(res.centroids[p].numpy(),
+                                   np.asarray(ref.centroids), **TOL)
+        np.testing.assert_array_equal(res.codes[p].numpy(),
+                                      np.asarray(ref.codes))
+        np.testing.assert_allclose(float(res.distortion[p]),
+                                   float(ref.distortion), rtol=1e-5)
+    one = tkm.kmeans(torch.from_numpy(x[1]), l, iters, backend="torch")
+    assert torch.equal(one.centroids, res.centroids[1])
+    assert torch.equal(one.codes, res.codes[1])
+    np.testing.assert_allclose(float(one.distortion),
+                               float(res.distortion[1]), rtol=1e-6)
+
+
+def test_keyed_seeding_is_kmeans_plus_plus():
+    """With a generator the seeds are kmeans++ draws: rows of the
+    subsample, distinct where the data is, reproducible from the seed,
+    different across seeds. (``jax.random`` draws cannot be reproduced, so
+    this is a property test.)"""
+    x = torch.from_numpy(_acts(19, 4, 600, 8))
+    seeds = [tkm._init_centroids(x, 6, torch.Generator().manual_seed(s))
+             for s in (1, 1, 2)]
+    assert torch.equal(seeds[0], seeds[1])
+    assert not torch.equal(seeds[0], seeds[2])
+    xs = x[:, ::2][:, :256]                      # the strided subsample
+    for p in range(4):
+        hits = (seeds[0][p][:, None, :] == xs[p][None]).all(-1)
+        assert bool(hits.any(-1).all())
+        assert len({tuple(r.tolist()) for r in seeds[0][p]}) == 6
+    assert torch.equal(seeds[0][:, 0], x[:, 0])  # the first seed: row 0
+    res = tkm.batched_kmeans(x, 6, 2, backend="torch",
+                             generator=torch.Generator().manual_seed(1))
+    assert bool(torch.isfinite(res.distortion).all())
+
+
 def test_backend_registry():
     assert set(tkm.available_backends()) == {"torch", "cuda", "auto"}
     assert tkm.resolve_backend("auto", torch.device("cpu")) == "torch"
@@ -89,6 +151,8 @@ def test_cuda_backend_raises_on_cpu_tensors():
     z = torch.from_numpy(_acts(1, 1, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tq.quantize(z, tq.PQConfig(2, 2, backend="cuda"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tkm.batched_kmeans(z.reshape(1, -1, 8), 2, 1, backend="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +180,67 @@ def test_quantize_matches_jax(q, r):
                                    np.asarray(ref.codebooks), **TOL)
         np.testing.assert_allclose(float(qb.distortion[c]),
                                    float(ref.distortion), rtol=1e-5)
+
+
+@pytest.mark.parametrize("warm_iters", [None, 0, 3])
+def test_quantize_stateful_warm_start_matches_jax(warm_iters):
+    """A cold round bootstraps the state (rounds 1); the warm rounds resume
+    from it at ``effective_warm_iters`` and count up, client by client, as
+    the reference does on each client."""
+    kw = dict(kmeans_iters=5, warm_iters=warm_iters)
+    cfg_t = tq.PQConfig(72, 4, 2, backend="torch", **kw)
+    cfg_j = jq.PQConfig(72, 4, 2, backend="jnp", **kw)
+    assert cfg_t.effective_warm_iters == cfg_j.effective_warm_iters
+    assert cfg_t.l == cfg_j.l == 4
+    state_t, state_j = None, [None, None]
+    for rnd in range(3):
+        z = _acts(20 + rnd, 2, 12, 288)
+        qb, state_t = tq.quantize_stateful(torch.from_numpy(z), cfg_t,
+                                           state_t)
+        assert state_t.codebooks.shape == (2, 2, 4, 4)
+        np.testing.assert_array_equal(state_t.rounds.numpy(), [rnd + 1] * 2)
+        for c in range(2):
+            ref, state_j[c] = jq.quantize_stateful(jnp.asarray(z[c]), cfg_j,
+                                                   state_j[c])
+            np.testing.assert_array_equal(qb.codes[c].numpy(),
+                                          np.asarray(ref.codes))
+            np.testing.assert_allclose(qb.dequantized[c].numpy(),
+                                       np.asarray(ref.dequantized), **TOL)
+            np.testing.assert_allclose(state_t.codebooks[c].numpy(),
+                                       np.asarray(state_j[c].codebooks),
+                                       **TOL)
+            assert int(state_j[c].rounds) == rnd + 1
+
+
+def test_init_quantizer_state_and_warm_zero_iters():
+    cfg = tq.PQConfig(8, 2, kmeans_iters=4, warm_iters=0)
+    z = torch.from_numpy(_acts(23, 3, 10, 64))
+    qb = tq.quantize(z, cfg)
+    st = tq.init_quantizer_state(qb)
+    assert st.codebooks.dtype == torch.float32
+    np.testing.assert_array_equal(st.rounds.numpy(), [1, 1, 1])
+    # a warm round of 0 iterations encodes with the given codebooks
+    warm = tq.quantize(z, cfg, state=st)
+    assert torch.equal(warm.codebooks, qb.codebooks)
+    assert torch.equal(warm.codes, qb.codes)
+    with pytest.raises(ValueError, match="warm_iters"):
+        tq.PQConfig(8, 2, warm_iters=-1)
+
+
+def test_quantization_error_and_vanilla_configs_match_jax():
+    z = _acts(24, 2, 16, 64)
+    for mk in ("vanilla_kmeans_config", "vanilla_pq_config"):
+        args = (4,) if mk == "vanilla_kmeans_config" else (8, 4)
+        cfg_t = getattr(tq, mk)(*args, kmeans_iters=3, backend="torch")
+        cfg_j = getattr(jq, mk)(*args, kmeans_iters=3, backend="jnp")
+        assert (cfg_t.q, cfg_t.r, cfg_t.l) == (cfg_j.q, cfg_j.r, cfg_j.l)
+        err = tq.quantization_error(torch.from_numpy(z), cfg_t)
+        assert err.shape == (2,)
+        for c in range(2):
+            np.testing.assert_allclose(
+                float(err[c]),
+                float(jq.quantization_error(jnp.asarray(z[c]), cfg_j)),
+                rtol=1e-5)
 
 
 def test_groups_layout_matches_jax_row_for_row():
@@ -182,6 +307,43 @@ def test_correction_stats_distortion_is_a_metric():
     assert torch.equal(dist, qb.distortion)
     (grad,) = torch.autograd.grad(zt.sum(), z)
     assert torch.equal(grad, 1.0 + 0.25 * qb.residual)
+
+
+def test_quantize_downlink_matches_jax():
+    """Identity forward; the backward pass quantizes the cotangent, per
+    client, as the reference's ``quantize_downlink`` does on each."""
+    cfg_t = tq.PQConfig(8, 2, kmeans_iters=3, backend="torch")
+    cfg_j = jq.PQConfig(8, 2, kmeans_iters=3, backend="jnp")
+    z = _acts(25, 2, 10, 64)
+    g = _acts(26, 2, 10, 64)
+    zt = torch.from_numpy(z).requires_grad_()
+    out = tcorr.quantize_downlink(zt, cfg_t)
+    assert torch.equal(out.detach(), zt.detach())
+    (grad,) = torch.autograd.grad(out, zt, torch.from_numpy(g))
+    assert torch.equal(grad, tq.quantize(torch.from_numpy(g),
+                                         cfg_t).dequantized)
+    for c in range(2):
+        _, vjp = jax.vjp(lambda v: jcorr.quantize_downlink(v, cfg_j),
+                         jnp.asarray(z[c]))
+        np.testing.assert_allclose(grad[c].numpy(),
+                                   np.asarray(vjp(jnp.asarray(g[c]))[0]),
+                                   **TOL)
+
+
+def test_quantize_with_stats_matches_jax():
+    cfg_t = tq.PQConfig(8, 4, kmeans_iters=3, backend="torch")
+    cfg_j = jq.PQConfig(8, 4, kmeans_iters=3, backend="jnp")
+    z = _acts(27, 2, 12, 64)
+    zt, stats = tcorr.quantize_with_stats(torch.from_numpy(z), 0.1, cfg_t)
+    assert stats["pq_distortion"].shape == (2,)
+    for c in range(2):
+        zj, sj = jcorr.quantize_with_stats(jnp.asarray(z[c]), 0.1, cfg_j)
+        np.testing.assert_allclose(zt[c].detach().numpy(), np.asarray(zj),
+                                   **TOL)
+        np.testing.assert_allclose(float(stats["pq_distortion"][c]),
+                                   float(sj["pq_distortion"]), rtol=1e-5)
+        assert stats["pq_message_bits"] == sj["pq_message_bits"]
+        assert stats["pq_compression_ratio"] == sj["pq_compression_ratio"]
 
 
 # ---------------------------------------------------------------------------
