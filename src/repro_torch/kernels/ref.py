@@ -6,7 +6,8 @@ They carry a leading problem axis: ``x`` is ``(..., N, D)``,
 ``centroids`` ``(..., L, D)``, ``weights`` ``(..., N)``; ``lmask`` is one
 ``(L,)`` mask shared by every problem (1.0 = valid centroid). The scalar
 quantizer and the packers take ``(P, N)`` values or codes, one range or
-one stream of words per problem.
+one stream of words per problem. Flash attention takes the kernel's
+``(B·H, S, hd)`` layout.
 
 Assignment is written in the score form the kernels compute,
 ``argmax_l (2·x·c_l − ‖c_l‖²)`` -- the argmin of ``‖x − c_l‖²`` without
@@ -121,3 +122,27 @@ def lloyd_update_ref(x: torch.Tensor, weights: torch.Tensor,
         * weights.float().unsqueeze(-1)
     delta = x.float() - _gather_rows(cf, codes)   # exact 0 on exact cover
     return onehot.transpose(-1, -2) @ delta, onehot.sum(-2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        num_q_heads: int, num_kv_heads: int, scale: float,
+                        window=None) -> torch.Tensor:
+    """Causal GQA attention at positions 0..S−1, optionally windowed.
+
+    q (B·H, S, hd), k and v (B·Kv, S, hd); query row bh reads KV row
+    ``(bh // H)·Kv + (bh % H) // G`` with G = H / Kv. Scores, softmax and
+    P·V are f32 throughout; a score is kept iff qpos ≥ kpos and (window is
+    None or qpos − kpos < window), else it is ``NEG``. Returns
+    (B·H, S, hd) in ``q.dtype``. Any S: the mask is by index."""
+    bh, s, _ = q.shape
+    h, kv = num_q_heads, num_kv_heads
+    rows = torch.arange(bh, device=q.device)
+    kv_rows = (rows // h) * kv + (rows % h) // (h // kv)
+    kf, vf = k.float()[kv_rows], v.float()[kv_rows]
+    scores = (q.float() @ kf.transpose(-1, -2)) * scale
+    pos = torch.arange(s, device=q.device)
+    keep = pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep &= (pos[:, None] - pos[None, :]) < window
+    scores = torch.where(keep, scores, NEG)
+    return (torch.softmax(scores, -1) @ vf).to(q.dtype)

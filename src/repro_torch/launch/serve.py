@@ -1,0 +1,87 @@
+"""Batched split-inference entry point (twin of ``repro/launch/serve.py``).
+
+The client runs the embedding and the first ``cut_periods`` periods of the
+prompt, compresses the cut-layer activation with the paper's grouped PQ
+(one client per sequence) and the server completes the prefill; then a
+decode loop runs against the KV caches. It runs on the card unless
+``--device cpu`` asks for the CPU (the tests do, with ``--smoke``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
+      --batch 4 --prompt-len 2048 --gen 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import ARCH_IDS, get_arch
+from repro_torch.launch.specs import make_model
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--no-compress", action="store_true")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve: no CUDA device (use --device cpu for a CPU "
+                         "run)")
+    cfg = get_arch(args.arch, smoke=args.smoke)
+    model = make_model(cfg)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    init_gen = torch.Generator(device).manual_seed(args.seed)
+    data_gen = torch.Generator(device).manual_seed(args.seed + 1)
+    with torch.inference_mode():
+        params = model.init(init_gen, device)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=data_gen,
+                               device=device)
+        caches = model.init_caches(B, P + G, device)
+
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": prompt}, caches,
+                                       quantize=not args.no_compress)
+        _sync(device)
+        print(f"prefill: {B}x{P} tokens in {time.perf_counter() - t0:.2f}s "
+              f"(uplink {'raw' if args.no_compress else 'compressed'})")
+        if model.pq is not None and not args.no_compress:
+            bits = model.pq.message_bits(P, cfg.d_model)
+            raw = 64 * cfg.d_model * P
+            print(f"uplink per client: {bits / 8e3:.1f} kB vs raw "
+                  f"{raw / 8e3:.1f} kB ({raw / bits:.0f}x)")
+
+        t0 = time.perf_counter()
+        for i in range(G):
+            lg = logits[..., :cfg.vocab_size]
+            if args.temperature > 0:
+                probs = torch.softmax(lg[:, -1] / args.temperature, -1)
+                nxt = torch.multinomial(probs, 1, generator=data_gen)
+            else:
+                nxt = lg[:, -1].argmax(-1, keepdim=True)
+            logits, caches = model.decode_step(params, caches, nxt, P + i)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        print(f"decode: {G} steps x{B} in {dt:.2f}s "
+              f"({B * G / max(dt, 1e-9):.1f} tok/s)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

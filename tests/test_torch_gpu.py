@@ -122,3 +122,69 @@ def test_pack_unpack_kernels_match_plain_and_wire_on_card(bits):
         assert host[p].tobytes()[:len(stream)] == stream
     back = ops.unpack_codes(words, 999, bits)
     assert np.array_equal(back.cpu().numpy(), codes)
+
+
+def _attention_inputs(seed, dev, dtype, b, h, kv, s, hd):
+    r = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+                 .to(dev, dtype)
+                 for shape in ((b * h, s, hd), (b * kv, s, hd),
+                               (b * kv, s, hd)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,hd,window", [
+    (1, 2, 2, 64, 16, None),      # MHA, one tile
+    (2, 4, 2, 200, 32, None),     # GQA group 2, ragged S
+    (1, 8, 2, 333, 128, 100),     # group 4, hd = 128, a window
+    (2, 4, 1, 40, 64, None),      # S below one tile
+])
+def test_flash_attention_kernel_matches_plain_on_card(dtype, b, h, kv, s, hd,
+                                                      window):
+    """f32: within rtol 2e-4, atol 2e-5 of the plain version (the
+    reference's flash tolerance); bf16: within 1e-2 of the plain version
+    cast to bf16 (about two bf16 ulps after another summation order)."""
+    dev = _cuda_or_skip()
+    q, k, v = _attention_inputs(31, dev, dtype, b, h, kv, s, hd)
+    kw = dict(num_q_heads=h, num_kv_heads=kv, scale=hd ** -0.5,
+              window=window)
+    out = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                               atol=2e-5 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.gpu
+def test_smoke_prefill_launch_counts_on_card():
+    """One smoke prefill with the PQ uplink launches the flash kernel once
+    per layer, lloyd_update once per Lloyd iteration and pq_quantize once;
+    a decode step launches none of them."""
+    from repro_torch.configs.llama3_8b import SMOKE_CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.launch.specs import make_model
+
+    dev = _cuda_or_skip()
+    model = make_model(SMOKE_CONFIG)
+    with torch.inference_mode():
+        params = model.init(torch.Generator(dev).manual_seed(0), dev)
+        tokens = torch.randint(0, SMOKE_CONFIG.vocab_size, (2, 100),
+                               device=dev)
+        caches = model.init_caches(2, 101, dev)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        logits, caches = model.prefill(params, {"tokens": tokens}, caches,
+                                       quantize=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts() == {
+            "flash_attention": SMOKE_CONFIG.num_layers,
+            "lloyd_update": model.pq.kmeans_iters, "pq_quantize": 1}
+        _build.reset_launch_counts()
+        logits, _ = model.decode_step(params, caches,
+                                      logits[:, -1].argmax(-1, keepdim=True),
+                                      100)
+        torch.cuda.synchronize()
+        assert _build.launch_counts() == {}
+        assert bool(torch.isfinite(logits).all())

@@ -24,9 +24,12 @@ import torch
 from repro.federated.wire import _pack_codes as wire_pack_codes
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash_kernel
+from repro.models.attention import row_block_attention as jrow_block
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import (lloyd_update_in_kernel_order,
                                               lloyd_update_kernel)
@@ -381,6 +384,121 @@ def test_kernel_libraries_are_named_by_their_sources():
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+def _attention(seed, b, s, h, kv, hd):
+    """q (B, S, H, hd), k and v (B, S, Kv, hd) from a numpy seed."""
+    r = np.random.default_rng(seed)
+    return tuple(r.standard_normal((b, s, n, hd)).astype(np.float32)
+                 for n in (h, kv, kv))
+
+
+def _bh(x):
+    """(B, S, n, hd) -> the kernels' (B·n, S, hd)."""
+    b, s, n, hd = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * n, s, hd))
+
+
+# the cases of tests/test_flash.py (block sizes are the Pallas kernel's),
+# plus a ragged S that the Pallas kernel cannot take unpadded
+FLASH_CASES = [(1, 64, 2, 2, 16, 32, 32), (2, 128, 4, 2, 32, 64, 32),
+               (1, 128, 8, 2, 16, 128, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,bq,bk", FLASH_CASES)
+@pytest.mark.parametrize("window", [None, 32])
+def test_flash_attention_matches_jax(b, s, h, kv, hd, bq, bk, window):
+    """The plain version and the CPU wrapper against the Pallas kernel
+    (interpret mode) and against row_block_attention, within the
+    reference's own flash tolerance (rtol 2e-4, atol 2e-5)."""
+    q, k, v = _attention(s + hd, b, s, h, kv, hd)
+    scale = 1.0 / np.sqrt(hd)
+    kw = dict(num_q_heads=h, num_kv_heads=kv, scale=scale, window=window)
+    got_ref = tref.flash_attention_ref(_t(_bh(q)), _t(_bh(k)), _t(_bh(v)),
+                                       **kw)
+    got_ops = tops.flash_attention(_t(_bh(q)), _t(_bh(k)), _t(_bh(v)), **kw)
+    pallas = jflash_kernel(jnp.asarray(_bh(q)), jnp.asarray(_bh(k)),
+                           jnp.asarray(_bh(v)), block_q=bq, block_k=bk,
+                           interpret=True, **kw)
+    pos = jnp.arange(s)
+    rows = jrow_block(*map(jnp.asarray, (q, k, v)), pos, pos, window=window,
+                      q_chunk=s, scale=scale)
+    for want in (np.asarray(pallas), _bh(np.asarray(rows))):
+        for got in (got_ref, got_ops):
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
+                                       atol=2e-5)
+
+
+@pytest.mark.parametrize("s,window", [(100, None), (77, 20)])
+def test_flash_attention_ragged_s_matches_jax(s, window):
+    """Any S: the port masks by index; the reference's ops wrapper pads
+    to its block (interpret mode)."""
+    q, k, v = _attention(s, 2, s, 4, 2, 16)
+    kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.25, window=window)
+    got = tops.flash_attention(_t(_bh(q)), _t(_bh(k)), _t(_bh(v)), **kw)
+    want = jops.flash_attention(jnp.asarray(_bh(q)), jnp.asarray(_bh(k)),
+                                jnp.asarray(_bh(v)), block_q=32, block_k=32,
+                                interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_jax():
+    """bf16 in and out, as tests/test_flash.py's bf16 case (tolerance
+    3e-2: the outputs round to bf16 on both sides)."""
+    q, k, v = _attention(3, 1, 64, 2, 1, 16)
+    q16, k16, v16 = (jnp.asarray(_bh(a), jnp.bfloat16) for a in (q, k, v))
+    kw = dict(num_q_heads=2, num_kv_heads=1, scale=0.25)
+    want = jflash_kernel(q16, k16, v16, interpret=True, **kw)
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    got = tops.flash_attention(bf16(q16), bf16(k16), bf16(v16), **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_is_causal():
+    """Future KV perturbations never change earlier outputs (the twin of
+    tests/test_flash.py's causality probe)."""
+    q, k, v = _attention(5, 1, 64, 2, 2, 16)
+    kw = dict(num_q_heads=2, num_kv_heads=2, scale=0.25)
+    o1 = tops.flash_attention(_t(_bh(q)), _t(_bh(k)), _t(_bh(v)), **kw)
+    k[:, -1] += 50.0
+    v[:, -1] += 50.0
+    o2 = tops.flash_attention(_t(_bh(q)), _t(_bh(k)), _t(_bh(v)), **kw)
+    np.testing.assert_allclose(o1[:, :-1].numpy(), o2[:, :-1].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_flash_attention_refuses_grad():
+    q, k, v = (_t(_bh(a)) for a in _attention(6, 1, 32, 2, 1, 16))
+    kw = dict(num_q_heads=2, num_kv_heads=1, scale=0.25)
+    with pytest.raises(ValueError, match="forward only"):
+        tops.flash_attention(q.requires_grad_(), k, v, **kw)
+
+
+def test_flash_attention_cpu_wrapper_is_the_plain_version():
+    """On CPU tensors the kernel wrapper computes the plain version and
+    launches nothing; non-contiguous inputs are made contiguous by ops."""
+    q, k, v = (_t(_bh(a)) for a in _attention(7, 2, 40, 4, 2, 8))
+    kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.3, window=9)
+    _build.reset_launch_counts()
+    out = flash_attention_kernel(q, k, v, **kw)
+    assert torch.equal(out, tref.flash_attention_ref(q, k, v, **kw))
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qt.is_contiguous()
+    assert torch.equal(tops.flash_attention(qt, k, v, **kw), out)
+    assert _build.launch_counts() == {}
+    assert (_build.CSRC / "flash_attention.cu").exists()
+    assert _build.library_path("flash_attention").name.startswith(
+        "libflash_attention-")
 
 
 # ---------------------------------------------------------------------------
