@@ -12,8 +12,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. parity  -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes and at edge shapes (ragged N, a
                 masked L = 3, every packing width; for flash attention
-                ragged S, MHA, hd = 64, S below a tile, a window, and a
-                causality probe);
+                both routes (tensor_core for bf16 at hd a multiple of 16,
+                cuda_core otherwise), ragged S, MHA, hd = 16 / 64, S below
+                a tile, a window, a causality probe per route, and the
+                strided entry bitwise the contiguous one);
   4. slice   -- the FEMNIST FedLite train step at full width (d = 9216,
                 q = 1152, L = 2, R = 1, 5 Lloyd iterations, 10 clients of
                 20 examples, λ = 1e-4, sgd(10**-1.5)) for --steps steps,
@@ -42,7 +44,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 at 4 layers, and the prefill and decode times;
   9. times   -- each kernel's device time next to its plain version's, its
                 bound and, where one PyTorch call computes the same
-                function, that call's time; and the step times.
+                function, that call's time (flash attention through both
+                entries); lloyd_update and pq_quantize also at the serve
+                cut's shape; and the step times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -91,10 +95,16 @@ PACK_BITS = (1, 2, 4, 8, 16)
 # split serving of Llama-3 8B (src/repro_torch/configs/llama3_8b.py): 4
 # prompts of 2048 tokens, one client each, then 32 greedy decode steps
 SERVE_B, SERVE_P, SERVE_GEN = 4, 2048, 32
-# flash attention against its plain version: f32 within the reference's
-# own flash tolerance (tests/test_flash.py); a bf16 output against the
-# plain version cast to bf16, about two bf16 ulps after another summation
-# order
+# its PQ uplink (q = 512 subvectors of 8 of d = 4096, L = 16): one problem
+# per prompt of 2048 x 512 rows
+SERVE_PQ_ROWS, SERVE_PQ_D, SERVE_PQ_L = SERVE_P * 512, 8, 16
+# flash attention against its plain version: f32 (the cuda_core route)
+# within the reference's own flash tolerance (tests/test_flash.py); a bf16
+# output against the plain version cast to bf16 within 1e-2·(1 + |value|):
+# the output rounds to bf16, and the tensor_core route rounds P to bf16
+# before P·V as the reference's model path does. Measured on an H100:
+# max |err| 1.56e-2 on the synthetic bf16 cases (one bf16 ulp in [2, 4))
+# and 3.13e-2 on a real layer of the serve prefill, all inside the bound
 FLASH_F32_RTOL, FLASH_F32_ATOL = 2e-4, 2e-5
 FLASH_BF16_TOL = 1e-2
 # the f32 path check (4 layers): last-token logits of the kernel route
@@ -418,6 +428,7 @@ def check_flash(tag, q, k, v, h, kv, window=None, scale=None):
     """flash_attention vs its plain version on the same inputs (scale
     1/√hd unless given); returns the max |err| (in the output's units)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_route
 
     kw = dict(num_q_heads=h, num_kv_heads=kv, window=window,
               scale=q.shape[-1] ** -0.5 if scale is None else scale)
@@ -436,30 +447,68 @@ def check_flash(tag, q, k, v, h, kv, window=None, scale=None):
     if bool(bad.any()):
         fail(f"flash_attention {tag}: {int(bad.sum())} values off by up to "
              f"{float(err.max())} (rtol {rtol}, atol {atol})")
-    say("parity", f"flash_attention {tag}: q {tuple(q.shape)} "
+    say("parity", f"flash_attention {tag}: route "
+        f"{flash_route(q.dtype, q.shape[-1])}, q {tuple(q.shape)} "
         f"{str(q.dtype)[6:]} H={h} Kv={kv} window={window}: max |err| "
         f"{float(err.max()):.3e} (rtol {rtol}, atol {atol})")
     return float(err.max())
 
 
-def check_flash_causal(gen):
-    """Future KV perturbations never change earlier outputs of the kernel."""
+def check_flash_causal(gen, dtype, s, window):
+    """Future KV perturbations never change earlier outputs of the kernel:
+    bitwise, since a masked score adds an exact 0."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_route
 
-    q, k, v = flash_inputs(gen, torch.float32, 1, 4, 2, 300, 64)
-    kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.125)
+    q, k, v = flash_inputs(gen, dtype, 1, 4, 2, s, 64)
+    kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.125, window=window)
     o1 = ops.flash_attention(q, k, v, **kw)
     k2, v2 = k.clone(), v.clone()
     k2[:, -1] += 50.0
     v2[:, -1] += 50.0
     o2 = ops.flash_attention(q, k2, v2, **kw)
     torch.cuda.synchronize()
+    route = flash_route(dtype, 64)
     if not torch.equal(o1[:, :-1], o2[:, :-1]):
-        fail("flash_attention: a future key changed an earlier output")
+        fail(f"flash_attention ({route}): a future key changed an earlier "
+             f"output")
     if torch.equal(o1[:, -1], o2[:, -1]):
-        fail("flash_attention: the last key did not reach its own row")
-    say("parity", "flash_attention causality: earlier outputs bitwise "
-        "unchanged by a perturbed last key")
+        fail(f"flash_attention ({route}): the last key did not reach its "
+             f"own row")
+    say("parity", f"flash_attention causality: route {route}, "
+        f"{str(dtype)[6:]} S={s} window={window}: earlier outputs bitwise "
+        f"unchanged by a perturbed last key")
+
+
+def strided_views(q, k, v, b):
+    """(B·n, S, hd) tensors as (B, S, n, hd) views of one fused
+    (B, S, H + 2·Kv, hd) tensor, as a fused qkv projection gives them."""
+    s, hd = q.shape[1:]
+    fused = torch.cat([t.view(b, -1, s, hd).transpose(1, 2)
+                       for t in (q, k, v)], dim=2)
+    h, kv = q.shape[0] // b, k.shape[0] // b
+    return fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:]
+
+
+def check_flash_strided(tag, q, k, v, b, h, kv, window=None):
+    """The strided entry on (B, S, H, hd) views against the contiguous
+    (B·H, S, hd) call: the same kernel on the same values, bitwise."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_route
+
+    s, hd = q.shape[1:]
+    kw = dict(scale=hd ** -0.5, window=window)
+    out = ops.flash_attention(q, k, v, num_q_heads=h, num_kv_heads=kv, **kw)
+    views = strided_views(q, k, v, b)
+    got = ops.flash_attention_strided(*views, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (b, s, h, hd) or not torch.equal(
+            got.transpose(1, 2).reshape(q.shape), out):
+        fail(f"flash_attention strided {tag}: not bitwise the contiguous "
+             f"call")
+    say("parity", f"flash_attention strided entry {tag}: route "
+        f"{flash_route(q.dtype, hd)}, views {tuple(views[0].shape)} strides "
+        f"{views[0].stride()}: bitwise the contiguous call")
 
 
 def phase_flash_parity(gen):
@@ -470,19 +519,27 @@ def phase_flash_parity(gen):
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = flash_inputs(gen, dtype, SERVE_B, h, kv, SERVE_P, hd)
         err = max(err, check_flash("serve shape", q, k, v, h, kv))
+        check_flash_strided("serve shape", q, k, v, SERVE_B, h, kv)
         del q, k, v
     cases = {"ragged S=1000": (torch.bfloat16, 1, 32, 8, 1000, 128, None),
              "ragged S=2047": (torch.float32, 1, 8, 2, 2047, 128, None),
              "MHA G=1": (torch.float32, 2, 4, 4, 300, 128, None),
              "G=4 bf16": (torch.bfloat16, 2, 8, 2, 300, 128, None),
              "hd=64": (torch.float32, 2, 4, 2, 500, 64, None),
+             "hd=64 bf16": (torch.bfloat16, 2, 4, 2, 500, 64, None),
+             "hd=16 bf16": (torch.bfloat16, 2, 4, 2, 333, 16, None),
+             "hd=40 bf16": (torch.bfloat16, 2, 4, 2, 333, 40, None),
              "S < tile": (torch.float32, 3, 4, 2, 37, 128, None),
+             "S < tile bf16": (torch.bfloat16, 3, 4, 2, 37, 128, None),
              "window 256": (torch.bfloat16, 1, 8, 2, 1500, 128, 256),
              "window 256 f32": (torch.float32, 1, 8, 2, 1029, 128, 256)}
     for tag, (dtype, b, h_, kv_, s_, hd_, window) in cases.items():
         q, k, v = flash_inputs(gen, dtype, b, h_, kv_, s_, hd_)
         err = max(err, check_flash(tag, q, k, v, h_, kv_, window))
-    check_flash_causal(gen)
+        if tag in ("hd=16 bf16", "window 256", "window 256 f32"):
+            check_flash_strided(tag, q, k, v, b, h_, kv_, window)
+    check_flash_causal(gen, torch.float32, 300, None)
+    check_flash_causal(gen, torch.bfloat16, 1000, 200)
     return err
 
 
@@ -956,7 +1013,8 @@ def phase_serve(seed):
         per_kernel = phase_profile("serve prefill", prefill, 1, "prefill")
         if per_kernel:
             flash_ms = sum(v for key, v in per_kernel.items()
-                           if "flash_attention" in key)
+                           if "flash_tc_kernel" in key
+                           or "flash_cc_kernel" in key)
             say("times", f"serve prefill: flash_attention {flash_ms:.3f} ms, "
                 f"{flash_ms / sum(per_kernel.values()):.1%} of device time")
         lg, caches = prefill()
@@ -965,25 +1023,28 @@ def phase_serve(seed):
         del caches
 
         # the kernel against its plain version on two real layers' q, k, v
+        # (the prefill passes the projections' (B, S, H, hd) views to the
+        # strided entry; the check takes their (B·H, S, hd) copies)
         captured, calls = {}, [0]
-        real_flash = ops.flash_attention
+        real_flash = ops.flash_attention_strided
 
         def record(q, k, v, **kw):
             if calls[0] in (0, cfg.num_layers - 1):
-                captured[calls[0]] = (q.contiguous(), k.contiguous(),
-                                      v.contiguous(), kw)
+                captured[calls[0]] = (
+                    *(t.transpose(1, 2).reshape(-1, *t.shape[1:2],
+                                                t.shape[3])
+                      for t in (q, k, v)), q.shape[2], k.shape[2], kw)
             calls[0] += 1
             return real_flash(q, k, v, **kw)
-        ops.flash_attention = record
+        ops.flash_attention_strided = record
         try:
             prefill()
         finally:
-            ops.flash_attention = real_flash
+            ops.flash_attention_strided = real_flash
         err = 0.0
-        for layer, (q, k, v, kw) in sorted(captured.items()):
-            err = max(err, check_flash(f"serve layer {layer}", q, k, v,
-                                       kw["num_q_heads"], kw["num_kv_heads"],
-                                       kw["window"], kw["scale"]))
+        for layer, (q, k, v, h, kv, kw) in sorted(captured.items()):
+            err = max(err, check_flash(f"serve layer {layer}", q, k, v, h,
+                                       kv, kw["window"], kw["scale"]))
         del captured
 
         pq_errs = phase_serve_routes(model, plain_model, params, prompt,
@@ -1217,7 +1278,8 @@ def phase_profile(tag, run, n=3, unit="step"):
     return {e.key: e.self_device_time_total / n / 1e3 for e in events}
 
 
-def phase_times(gen, counts, errs, payload_codes, payload_words):
+def phase_times(gen, counts, errs, payload_codes, payload_words,
+                serve_counts):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
     from repro_torch.kernels.lloyd_update import lloyd_update_kernel
@@ -1305,28 +1367,37 @@ def phase_times(gen, counts, errs, payload_codes, payload_words):
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
     kernels.append(time_flash(gen, counts, errs))
+    time_serve_pq(gen, serve_counts)
     return kernels
 
 
 def time_flash(gen, counts, errs):
     """flash_attention at the serve prefill's shape (B=4, H=32, Kv=8,
-    S=2048, hd=128, bf16): the kernel, its plain version, and one PyTorch
+    S=2048, hd=128, bf16, the tensor_core route): the contiguous entry on
+    (B·H, S, hd) and the strided entry on the (B, S, H, hd) views of a
+    fused tensor (the path's entry), the plain version, and one PyTorch
     call that computes the same function (scaled_dot_product_attention,
     causal, GQA), each timed between CUDA events over back-to-back calls
-    (milliseconds each, so the host's launch cost does not show)."""
+    (a fraction of a millisecond or more each, so the host's launch cost
+    hides behind the device's work)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                     flash_attention_kernel,
+                                                     flash_route)
 
     B, H, KV, S, HD = SERVE_B, 32, 8, SERVE_P, 128
     q, k, v = flash_inputs(gen, torch.bfloat16, B, H, KV, S, HD)
     kw = dict(num_q_heads=H, num_kv_heads=KV, scale=HD ** -0.5)
+    views = strided_views(q, k, v, B)
     q4, k4, v4 = (t.view(B, -1, S, HD) for t in (q, k, v))
-    k_ms = eager_ms(lambda: flash_attention_kernel(q, k, v, **kw), calls=20)
+    c_ms = eager_ms(lambda: flash_attention_kernel(q, k, v, **kw), calls=50)
+    s_ms = eager_ms(lambda: flash_attention_bshd(*views, scale=kw["scale"]),
+                    calls=50)
     p_ms = eager_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), calls=5)
     lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True),
-        calls=20)
+        calls=50)
     lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                          scale=kw["scale"], enable_gqa=True)
     ours = flash_attention_kernel(q, k, v, **kw).view(B, H, S, HD)
@@ -1337,20 +1408,62 @@ def time_flash(gen, counts, errs):
     flops = 4 * HD * (S * (S + 1) // 2) * B * H
     b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     f32_ms = flops / F32_FLOP_PER_S * 1e3
-    say("times", f"flash_attention: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
-        f"(max |Δ| to ours {lib_gap:.3e}); bound {b_ms:.4f} ms by {b_by} on "
-        f"the bf16 tensor cores ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
-        f"GFLOP; {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms of bytes, "
-        f"{f32_ms:.4f} ms at the f32 CUDA-core peak); kernel at "
-        f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+    say("times", f"flash_attention (route {flash_route(q.dtype, HD)}): "
+        f"strided entry {s_ms:.4f} ms ({flops / s_ms / 1e9:.1f} TFLOP/s), "
+        f"contiguous entry {c_ms:.4f} ms ({flops / c_ms / 1e9:.1f} "
+        f"TFLOP/s); plain {p_ms:.4f} ms; scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s; max |Δ| to "
+        f"ours {lib_gap:.3e}); bound {b_ms:.4f} ms by {b_by} on the bf16 "
+        f"tensor cores ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms of bytes, {f32_ms:.4f} ms "
+        f"at the f32 CUDA-core peak)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:104",
             "launches": counts.get("flash_attention", 0),
-            "max_abs_err": errs["flash_attention"], "ms": k_ms,
+            "max_abs_err": errs["flash_attention"], "ms": s_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
+
+
+def time_serve_pq(gen, serve_counts):
+    """lloyd_update and pq_quantize at the serve prefill's cut, grouped as
+    the quantizer groups it (4 problems of 1048576 x 8, L = 16, f32):
+    device time beside the bound and the plain version, and the launches
+    per prefill."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lloyd_update import lloyd_update_kernel
+    from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+
+    dev = torch.device("cuda")
+    p, n, d = SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_D
+    x = torch.randn((p, n, d), generator=gen).to(dev)
+    w = torch.ones((p, n), device=dev)
+    cp, lmask = ops._pad_centroids(
+        torch.randn((p, SERVE_PQ_L, d), generator=gen).to(dev))
+    lc = cp.shape[1]
+    nb_x = x.numel() * 4
+    rows = [("lloyd_update", lambda: lloyd_update_kernel(x, w, cp, lmask),
+             lambda: ref.lloyd_update_ref(x, w, cp, lmask),
+             nb_x + w.numel() * 4 + (cp.numel() + lmask.numel()) * 4
+             + p * lc * (d + 1) * 4,
+             p * n * (2 * lc * d + 3 * d + 1)),
+            ("pq_quantize", lambda: pq_quantize_kernel(x, cp, lmask),
+             lambda: ref.pq_quantize_ref(x, cp, lmask),
+             3 * nb_x + (cp.numel() + lmask.numel()) * 4 + p * n * 4,
+             p * n * (2 * lc * d + d))]
+    for name, kern, plain, nb, flops in rows:
+        k_ms = device_ms(kern, calls=20, reps=10)
+        p_ms = eager_ms(plain, calls=10)
+        b_ms, b_by = bound(nb, flops)
+        launches = serve_counts.get(name, 0)
+        say("times", f"{name} at the serve cut ({p} x {n} x {d}, L = "
+            f"{SERVE_PQ_L}): kernel {k_ms * 1e3:.2f} us (device, CUDA "
+            f"graph), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us "
+            f"by {b_by} ({nb / 1e6:.1f} MB, {flops / 1e6:.1f} MOP); "
+            f"{launches} launches per prefill, {launches * k_ms * 1e3:.2f} "
+            f"us per prefill ({launches * (k_ms - b_ms) * 1e3:.2f} us above "
+            f"the bound)")
 
 
 def main(argv=None) -> int:
@@ -1394,7 +1507,7 @@ def main(argv=None) -> int:
     errs["flash_attention"] = max(errs["flash_attention"], layer_err)
     for kernel, e in pq_errs.items():
         errs[kernel] = max(errs[kernel], e)
-    kernels = phase_times(gen, counts, errs, codes, words)
+    kernels = phase_times(gen, counts, errs, codes, words, serve)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

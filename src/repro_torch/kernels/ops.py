@@ -10,8 +10,9 @@ pads (``core.kmeans.lloyd`` pads to a chunk multiple) carry weight 0.
 Every input has a leading problem axis P (clients x codebook groups for
 k-means, clients for scalar quantization and packing): the reference
 vmaps one problem per call, the kernels take all of them in one launch.
-``flash_attention`` takes the kernel's (B·H, S, hd) layout and any S: the
-kernel masks its ragged last tile, so no padded copy is made.
+``flash_attention`` takes the reference's (B·H, S, hd) layout and
+``flash_attention_strided`` the projections' (B, S, H, hd) views, both at
+any S: the kernel masks its ragged last tile, so no padded copy is made.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                 flash_attention_kernel)
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import lloyd_update_kernel
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
@@ -97,20 +99,35 @@ def unpack_codes(words: torch.Tensor, count: int, bits: int) -> torch.Tensor:
                                bits)
 
 
+def _forward_only(*ts: torch.Tensor) -> None:
+    """The flash kernel has no backward pass (nor has the TPU kernel), and
+    a silent wrong gradient is worse than an error."""
+    if any(t.requires_grad for t in ts):
+        raise ValueError("flash_attention: forward only; an input requires "
+                         "grad (use models.attention.row_block_attention "
+                         "for training)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_q_heads: int, num_kv_heads: int, scale: float,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention at positions 0..S−1, forward only.
 
     q (B·H, S, hd), k and v (B·Kv, S, hd), f32 or bf16; returns (B·H, S,
-    hd) in q.dtype. Raises on an input that requires grad: the kernel has
-    no backward pass (nor has the TPU kernel), and a silent wrong gradient
-    is worse than an error."""
-    if any(t.requires_grad for t in (q, k, v)):
-        raise ValueError("flash_attention: forward only; an input requires "
-                         "grad (use models.attention.row_block_attention "
-                         "for training)")
+    hd) in q.dtype. Raises on an input that requires grad."""
+    _forward_only(q, k, v)
     return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                   v.contiguous(), num_q_heads=num_q_heads,
                                   num_kv_heads=num_kv_heads, scale=scale,
                                   window=window)
+
+
+def flash_attention_strided(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, scale: float,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention`` on the projections' layout, without copies:
+    q (B, S, H, hd), k and v (B, S, Kv, hd) views with the head dim
+    contiguous; returns (B, S, H, hd) in q.dtype. Raises on an input that
+    requires grad."""
+    _forward_only(q, k, v)
+    return flash_attention_bshd(q, k, v, scale=scale, window=window)

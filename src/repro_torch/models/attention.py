@@ -2,8 +2,8 @@
 ``repro/models/attention.py``), four execution paths:
 
   * ``flash``: the prefill over positions 0..S−1 -- the hand-written CUDA
-    flash kernel on a card (``kernels/ops.flash_attention``), its plain
-    version on the CPU. It computes what ``row_block_attention`` computes
+    flash kernel on a card (``kernels/ops.flash_attention_strided``), its
+    plain version on the CPU. It computes what ``row_block_attention`` computes
     there (causal, GQA, optional window); the reference reaches its Pallas
     twin only from tests and benchmarks, the port puts it on the path.
   * ``row_block``: causal (optionally windowed) attention in query
@@ -111,16 +111,10 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window: Optional[int]):
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, window: Optional[int],
                             scale: float) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,S,Kv,hd) at positions 0..S−1 -> (B,S,H,hd),
-    through the kernel's (B·H, S, hd) layout."""
-    B, S, H, hd = q.shape
-    Kv = k.shape[2]
-    out = ops.flash_attention(
-        q.transpose(1, 2).reshape(B * H, S, hd),
-        k.transpose(1, 2).reshape(B * Kv, S, hd),
-        v.transpose(1, 2).reshape(B * Kv, S, hd),
-        num_q_heads=H, num_kv_heads=Kv, scale=scale, window=window)
-    return out.reshape(B, H, S, hd).transpose(1, 2)
+    """q: (B,S,H,hd), k/v: (B,S,Kv,hd) at positions 0..S−1 -> (B,S,H,hd);
+    the kernel reads the projections' views through their strides and
+    writes the (B,S,H,hd) output, so no layout is copied."""
+    return ops.flash_attention_strided(q, k, v, window=window, scale=scale)
 
 
 # ---------------------------------------------------------------------------

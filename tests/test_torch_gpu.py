@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_route
 from repro_torch.kernels.lloyd_update import lloyd_update_in_kernel_order
 
 
@@ -139,22 +140,52 @@ def _attention_inputs(seed, dev, dtype, b, h, kv, s, hd):
     (2, 4, 2, 200, 32, None),     # GQA group 2, ragged S
     (1, 8, 2, 333, 128, 100),     # group 4, hd = 128, a window
     (2, 4, 1, 40, 64, None),      # S below one tile
+    (1, 4, 2, 100, 40, None),     # hd not a multiple of 16
 ])
 def test_flash_attention_kernel_matches_plain_on_card(dtype, b, h, kv, s, hd,
                                                       window):
-    """f32: within rtol 2e-4, atol 2e-5 of the plain version (the
-    reference's flash tolerance); bf16: within 1e-2 of the plain version
-    cast to bf16 (about two bf16 ulps after another summation order)."""
+    """f32 (the cuda_core route): within rtol 2e-4, atol 2e-5 of the plain
+    version (the reference's flash tolerance); bf16: within 1e-2 of the
+    plain version cast to bf16 (its output rounds to bf16, and the
+    tensor_core route rounds P to bf16 before P·V; max |err| 1.56e-2 on
+    an H100, one bf16 ulp in [2, 4), inside 1e-2·(1 + |value|)).
+    The strided entry on (B, S, H, hd) views is bitwise the contiguous
+    call."""
     dev = _cuda_or_skip()
     q, k, v = _attention_inputs(31, dev, dtype, b, h, kv, s, hd)
     kw = dict(num_q_heads=h, num_kv_heads=kv, scale=hd ** -0.5,
               window=window)
+    want_route = "tensor_core" if dtype == torch.bfloat16 and hd % 16 == 0 \
+        else "cuda_core"
+    assert flash_route(dtype, hd) == want_route
     out = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == q.shape
     tol = 2e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                atol=2e-5 if dtype == torch.float32 else tol)
+    views = [t.view(b, -1, s, hd).transpose(1, 2).contiguous()
+             for t in (q, k, v)]
+    strided = ops.flash_attention_strided(*views, scale=kw["scale"],
+                                          window=window)
+    assert torch.equal(strided.transpose(1, 2).reshape(q.shape), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_causal_on_card(dtype):
+    """A perturbed last key changes no earlier output, bitwise (a masked
+    score adds an exact 0), on both routes, at a ragged S with a window."""
+    dev = _cuda_or_skip()
+    q, k, v = _attention_inputs(32, dev, dtype, 1, 4, 2, 300, 64)
+    kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.125, window=70)
+    o1 = ops.flash_attention(q, k, v, **kw)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, -1] += 50.0
+    v2[:, -1] += 50.0
+    o2 = ops.flash_attention(q, k2, v2, **kw)
+    assert torch.equal(o1[:, :-1], o2[:, :-1])
+    assert not torch.equal(o1[:, -1], o2[:, -1])
 
 
 @pytest.mark.gpu

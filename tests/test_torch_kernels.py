@@ -29,7 +29,10 @@ from repro.models.attention import row_block_attention as jrow_block
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_bshd,
+                                                 flash_attention_kernel,
+                                                 flash_route)
+from repro_torch.models import attention as tattn
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import (lloyd_update_in_kernel_order,
                                               lloyd_update_kernel)
@@ -499,6 +502,70 @@ def test_flash_attention_cpu_wrapper_is_the_plain_version():
     assert (_build.CSRC / "flash_attention.cu").exists()
     assert _build.library_path("flash_attention").name.startswith(
         "libflash_attention-")
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 40, "cuda_core")])
+def test_flash_route(dtype, hd, route):
+    """bf16 at hd a multiple of 16 takes the tensor cores; f32 keeps the
+    reference's f32 numerics on the CUDA cores, as bf16 at other hd."""
+    assert flash_route(dtype, hd) == route
+
+
+def _strided_views(q, k, v):
+    """(B, S, n, hd) arrays as strided views of one fused (B, S, H + 2·Kv,
+    hd) tensor, as a fused qkv projection would give them."""
+    h, kv = q.shape[2], k.shape[2]
+    fused = _t(np.concatenate([q, k, v], axis=2))
+    views = fused[:, :, :h], fused[:, :, h:h + kv], fused[:, :, h + kv:]
+    assert not any(t.is_contiguous() for t in views)
+    return views
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [(2, 64, 4, 2, 16, None),
+                                                (1, 77, 8, 2, 32, 20)])
+def test_flash_attention_strided_entry_matches_jax(b, s, h, kv, hd, window):
+    """The strided entry on (B, S, H, hd) views against the Pallas kernel
+    in interpret mode (the reference's ops wrapper, which pads a ragged S),
+    within the reference's flash tolerance (rtol 2e-4, atol 2e-5)."""
+    q, k, v = _attention(s + 2 * hd, b, s, h, kv, hd)
+    kw = dict(scale=1.0 / np.sqrt(hd), window=window)
+    got = flash_attention_bshd(*_strided_views(q, k, v), **kw)
+    assert got.shape == (b, s, h, hd) and got.is_contiguous()
+    want = jops.flash_attention(jnp.asarray(_bh(q)), jnp.asarray(_bh(k)),
+                                jnp.asarray(_bh(v)), num_q_heads=h,
+                                num_kv_heads=kv, block_q=32, block_k=32,
+                                interpret=True, **kw)
+    want = np.asarray(want).reshape(b, h, s, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_through_strided_entry_is_the_copy_route(dtype):
+    """On the CPU, flash_prefill_attention (the strided entry) is bitwise
+    ops.flash_attention on the (B·H, S, hd) copies, the route it replaces,
+    and launches nothing."""
+    q, k, v = (t.to(dtype) for t in _strided_views(
+        *_attention(8, 2, 50, 4, 2, 16)))
+    _build.reset_launch_counts()
+    got = tattn.flash_prefill_attention(q, k, v, window=12, scale=0.25)
+    b, s, h, hd = q.shape
+    want = tops.flash_attention(
+        *(torch.from_numpy(_bh(t.float().numpy())).to(dtype)
+          for t in (q, k, v)),
+        num_q_heads=h, num_kv_heads=k.shape[2], scale=0.25, window=12)
+    assert got.dtype == dtype
+    assert torch.equal(got, want.reshape(b, h, s, hd).transpose(1, 2))
+    assert _build.launch_counts() == {}
+
+
+def test_flash_attention_strided_refuses_grad():
+    q, k, v = (_t(a) for a in _attention(9, 1, 32, 2, 1, 16))
+    with pytest.raises(ValueError, match="forward only"):
+        tops.flash_attention_strided(q.requires_grad_(), k, v, scale=0.25)
 
 
 # ---------------------------------------------------------------------------
