@@ -120,12 +120,16 @@ PATH_DIST_RTOL = 1e-4
 SERVE_LOGIT_GAP = 5e-2
 
 TIE_RTOL = 1e-5       # top-two scores this close may pick either code
-# lloyd_update's dsums: within DSUM_ATOL of the plain version summed in the
-# kernel's order (bitwise equal for 0/1 weights), and within
+# lloyd_update's dsums: bitwise those of the plain version summed in the
+# launch's order (0/1 weights make every term exact), within γ·Σ|terms| of
+# the f64 sum (check_lloyd), and, for an f32 x, within
 # DSUM_RTOL·(1 + |plain|) of the plain version's own order. Sums of ~1e4
-# f32 terms near 2e4 differ by ~0.1 between two orders, so an absolute
-# 1e-4 holds only for the same order.
-DSUM_ATOL = 1e-4
+# f32 terms near 2e4 differ by ~0.1 between two orders, so only the same
+# order can be held bitwise. On bf16-valued rows the plain (matmul) order
+# itself strays from the exact sum by more than DSUM_RTOL (its roundings
+# no longer cancel), so a bf16 x is held to f64 within γ and, bitwise, to
+# its f32 upcast instead.
+DSUM_ATOL = 0.0
 DSUM_RTOL = 2e-5
 # kmeans_assign's squared distances: ‖x‖² − best in f32, each rounded once
 SQDIST_RTOL = 1e-5    # of (1 + ‖x‖²)
@@ -247,37 +251,47 @@ def lloyd_f64(x, w, cp, lmask):
     return oh_t @ delta, oh_t @ delta.abs()
 
 
-def check_lloyd(tag, x, c, w, order_rtol=DSUM_RTOL):
-    """lloyd_update vs its plain versions; returns max |dsums − plain in
-    the kernel's order|.
+def chain_depth(lay, n):
+    """The longest chain of f32 additions behind one of a launch's dsums:
+    d8: a thread's rows (rows / threads in each of its tiles), the 5
+    levels of the xor tree, the warps, the blocks; generic: a block's
+    rows, then the blocks."""
+    if lay.route == "d8":
+        return -(-n // (lay.rows * lay.blocks)) * (lay.rows // lay.threads) \
+            + 5 + lay.threads // 32 + lay.blocks
+    return lay.rows + lay.blocks
 
-    Three sums of the same f32 terms: the plain version in the kernel's
+
+def check_lloyd(tag, x, cp, lmask, w, order_rtol=DSUM_RTOL):
+    """lloyd_update_kernel on the codebook cp (masked by lmask, or None) vs
+    its plain versions; returns (max |dsums − plain in the kernel's order|,
+    dsums, counts, route).
+
+    Three sums of the same f32 terms: the plain version in the launch's
     order (the kernel's bit for bit), the plain version's own order
     (within ``order_rtol``·(1 + |plain|); None skips it), and f64, which
     the kernel must meet within γ·Σ|terms|, the f32 rounding bound of its
-    chains of at most n = ROWS_PER_BLOCK + blocks additions:
-    γ = n·2⁻²⁴ / (1 − n·2⁻²⁴)."""
-    from repro_torch.kernels import ops, ref
+    chains of at most n additions (``chain_depth``): γ = n·2⁻²⁴ /
+    (1 − n·2⁻²⁴). A bf16 x must give bitwise its f32 upcast's sums."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.lloyd_update import (
-        ROWS_PER_BLOCK, lloyd_update_in_kernel_order)
+        lloyd_layout, lloyd_update_in_kernel_order, lloyd_update_kernel)
 
-    cp, lmask = ops._pad_centroids(c)
     ties = ref.near_ties(x, cp, lmask, TIE_RTOL)
     # a near-tie row may take either code; weight 0 keeps it out of both
-    w = torch.where(ties, 0.0, w)
-    ds, cnt = ops.lloyd_update(x, c, w)
-    l = c.shape[1]
-    ds_o, cnt_o = (t[:, :l] for t in
-                   lloyd_update_in_kernel_order(x, w, cp, lmask))
-    ds_r, cnt_r = (t[:, :l] for t in ref.lloyd_update_ref(x, w, cp, lmask))
-    ds_64, mag = (t[:, :l] for t in lloyd_f64(x, w, cp, lmask))
+    w = torch.where(ties, 0.0, w).contiguous()
+    lay = lloyd_layout(x, cp.shape[1])
+    ds, cnt = lloyd_update_kernel(x, w, cp, lmask)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, cp, lmask, lay)
+    ds_r, cnt_r = ref.lloyd_update_ref(x, w, cp, lmask)
+    ds_64, mag = lloyd_f64(x, w, cp, lmask)
     torch.cuda.synchronize()
     if not (torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_o)):
         fail(f"lloyd_update {tag}: counts differ from the plain version")
     err = float((ds - ds_o).abs().max())
     err_r = float((ds - ds_r).abs().max())
     rel_r = float(((ds - ds_r).abs() / (1 + ds_r.abs())).max())
-    depth = ROWS_PER_BLOCK + -(-x.shape[1] // ROWS_PER_BLOCK)
+    depth = chain_depth(lay, x.shape[1])
     gamma = depth * 2.0 ** -24 / (1 - depth * 2.0 ** -24)
     over = (ds.double() - ds_64).abs() - gamma * mag
     rel_64 = float(((ds.double() - ds_64).abs()
@@ -291,21 +305,33 @@ def check_lloyd(tag, x, c, w, order_rtol=DSUM_RTOL):
     if bool((over > 0).any()):
         fail(f"lloyd_update {tag}: dsums off from the f64 sum by "
              f"{rel_64} of Σ|terms|, above γ = {gamma}")
-    say("parity", f"lloyd_update {tag}: x {tuple(x.shape)} L={l}: counts "
+    upcast = ""
+    if x.dtype != torch.float32:
+        ds_f, cnt_f = lloyd_update_kernel(x.float(), w, cp, lmask)
+        if not (torch.equal(ds, ds_f) and torch.equal(cnt, cnt_f)):
+            fail(f"lloyd_update {tag}: {x.dtype} x differs from its f32 "
+                 f"upcast")
+        upcast = f"; bitwise the f32 upcast's"
+    say("parity", f"lloyd_update {tag} (route {lay.route}, {lay.blocks} "
+        f"blocks per problem): x {tuple(x.shape)} {x.dtype} "
+        f"L={cp.shape[1]}{' masked' if lmask is not None else ''}: counts "
         f"equal; max |dsums err| {err:.3e} against the kernel's order, "
         f"{err_r:.3e} (scaled {rel_r:.3e}) against the plain order, "
-        f"{rel_64:.3e} of Σ|terms| against f64 (γ {gamma:.3e}); "
-        f"{int(ties.sum())} near-tie rows weighted 0")
-    return err, ds, cnt
+        f"{rel_64:.3e} of Σ|terms| against f64 (γ {gamma:.3e}, chains of "
+        f"{depth}){upcast}; {int(ties.sum())} near-tie rows weighted 0")
+    return err, ds, cnt, lay.route
 
 
-def check_pq(tag, x, c):
-    """pq_quantize vs its plain version; returns max |err| where codes
-    agree (0 when z̃ and the residual are bitwise equal)."""
-    from repro_torch.kernels import ops, ref
+def check_pq(tag, x, cp, lmask=None):
+    """pq_quantize_kernel on the codebook cp (masked by lmask, or None) vs
+    its plain version; returns (max |err| where codes agree (0 when z̃ and
+    the residual are bitwise equal), z̃, residual, codes). A bf16 x must
+    give its f32 upcast's codes and residual, and z̃ rounded to bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lloyd_update import row_route
+    from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 
-    cp, lmask = ops._pad_centroids(c)
-    zt, resid, codes = ops.pq_quantize(x, c)
+    zt, resid, codes = pq_quantize_kernel(x, cp, lmask)
     zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, cp, lmask)
     torch.cuda.synchronize()
     differ = codes != codes_r
@@ -319,11 +345,22 @@ def check_pq(tag, x, c):
         fail(f"pq_quantize {tag}: z̃ or residual not bitwise equal where "
              f"codes agree")
     keep = agree.unsqueeze(-1)
-    err = max(float(torch.where(keep, (zt - zt_r).abs(), 0.0).max()),
+    err = max(float(torch.where(keep, (zt.float() - zt_r.float()).abs(),
+                                0.0).max()),
               float(torch.where(keep, (resid - resid_r).abs(), 0.0).max()))
-    say("parity", f"pq_quantize {tag}: x {tuple(x.shape)} L={c.shape[1]}: "
-        f"{int(differ.sum())} codes differ (all near-ties), z̃ and residual "
-        f"bitwise equal where codes agree")
+    upcast = ""
+    if x.dtype != torch.float32:
+        zt_f, resid_f, codes_f = pq_quantize_kernel(x.float(), cp, lmask)
+        if not (torch.equal(codes, codes_f) and torch.equal(resid, resid_f)
+                and torch.equal(zt, zt_f.to(x.dtype))):
+            fail(f"pq_quantize {tag}: {x.dtype} x differs from its f32 "
+                 f"upcast")
+        upcast = "; codes and residual bitwise the f32 upcast's, z̃ its RNE"
+    say("parity", f"pq_quantize {tag} (route {row_route(x, cp.shape[1])}): "
+        f"x {tuple(x.shape)} {x.dtype} L={cp.shape[1]}"
+        f"{' masked' if lmask is not None else ''}: {int(differ.sum())} "
+        f"codes differ (all near-ties), z̃ and residual bitwise equal where "
+        f"codes agree{upcast}")
     return err, zt, resid, codes
 
 
@@ -342,12 +379,11 @@ def check_kmeans_assign(tag, x, c):
     the codes agree."""
     from repro_torch.kernels import ops, ref
 
-    cp, lmask = ops._pad_centroids(c)
     codes, sq = ops.kmeans_assign(x, c)
-    codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
+    codes_r, sq_r = ref.kmeans_assign_ref(x, c)
     torch.cuda.synchronize()
     differ = codes.long() != codes_r
-    ties = ref.near_ties(x, cp, lmask, TIE_RTOL)
+    ties = ref.near_ties(x, c, None, TIE_RTOL)
     if bool((differ & ~ties).any()):
         fail(f"kmeans_assign {tag}: {int((differ & ~ties).sum())} codes "
              f"differ away from near-ties")
@@ -545,59 +581,95 @@ def phase_flash_parity(gen):
 
 def phase_parity(gen):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lloyd_update import lloyd_update_kernel
 
     dev = torch.device("cuda")
 
     def normal(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    # main-path shapes: 10 problems, the padded Lloyd rows carry weight 0
-    x = torch.zeros((CLIENTS * R, M_PAD, DSUB), device=dev)
-    x[:, :M] = normal(CLIENTS * R, M, DSUB)
+    # the main path's call: 10 problems of 23040 x 8, L = 2, no padding,
+    # no mask, no weights (near-tie rows weigh 0 in the checks)
+    x = normal(CLIENTS * R, M, DSUB)
     c = normal(CLIENTS * R, L, DSUB)
-    w = (torch.arange(M_PAD, device=dev) < M).float() \
-        .expand(CLIENTS * R, -1).contiguous()
-    lloyd_err, ds, cnt = check_lloyd("main", x, c, w)
-    ds2, cnt2 = ops.lloyd_update(x, c, torch.where(
-        ref.near_ties(x, *ops._pad_centroids(c), TIE_RTOL), 0.0, w))
+    ones = torch.ones((CLIENTS * R, M), device=dev)
+    lloyd_err, ds, cnt, _ = check_lloyd("main", x, c, None, ones)
+    w = torch.where(ref.near_ties(x, c, None, TIE_RTOL), 0.0, ones)
+    ds2, cnt2 = lloyd_update_kernel(x, w, c)
     if not (torch.equal(ds, ds2) and torch.equal(cnt, cnt2)):
         fail("lloyd_update: two runs are not bitwise identical")
-    say("parity", "lloyd_update main: two runs bitwise identical")
-    pq_err, *_ = check_pq("main", x[:, :M].contiguous(), c)
-
-    for tag, (p, n, l) in {"ragged N": (3, 1037, 2),
-                           "L=3 masked": (4, 5000, 3),
-                           "L=16": (4, 5000, 16)}.items():
-        xe, ce = normal(p, n, DSUB), normal(p, l, DSUB)
+    dsn, cntn = lloyd_update_kernel(x, None, c)
+    ds1, cnt1 = lloyd_update_kernel(x, ones, c)
+    if not (torch.equal(dsn, ds1) and torch.equal(cntn, cnt1)):
+        fail("lloyd_update: no weights differ from all-ones weights")
+    say("parity", "lloyd_update main: two runs bitwise identical; no "
+        "weights bitwise all-ones weights")
+    pq_err, *_ = check_pq("main", x, c)
+    # PR 14's call of the same step: rows padded to the 4096-row chunk with
+    # weight 0, L = 2 padded to 8 and masked
+    xp_ = torch.nn.functional.pad(x, (0, 0, 0, M_PAD - M))
+    wp_ = torch.nn.functional.pad(ones, (0, M_PAD - M))
+    lloyd_err = max(lloyd_err, check_lloyd("main, padded and masked", xp_,
+                                           *ops._pad_centroids(c), wp_)[0])
+    # bf16, the routes at the edges: a ragged N, L = 16, a codebook masked
+    # (L = 3 in 8) on d8 and L = 3 unmasked, D = 16 and a misaligned x on
+    # generic
+    xb = x.to(torch.bfloat16)
+    lloyd_err = max(lloyd_err, check_lloyd("main bf16", xb, c, None, ones,
+                                           None)[0])
+    pq_err = max(pq_err, check_pq("main bf16", xb, c)[0])
+    for tag, (p, n, d, l, masked, dtype) in {
+            "ragged N": (3, 1037, DSUB, 2, False, torch.float32),
+            "L=16": (4, 5000, DSUB, 16, False, torch.float32),
+            "L=16 bf16": (4, 5000, DSUB, 16, False, torch.bfloat16),
+            "L=3 masked": (4, 5000, DSUB, 3, True, torch.float32),
+            "L=3": (4, 5000, DSUB, 3, False, torch.float32),
+            "L=3 bf16": (4, 5000, DSUB, 3, False, torch.bfloat16),
+            "D=16 L=5 masked": (3, 2001, 16, 5, True,
+                                torch.float32)}.items():
+        xe = normal(p, n, d).to(dtype)
+        ce = normal(p, l, d)
+        cp, lmask = ops._pad_centroids(ce) if masked else (ce, None)
         we = torch.ones((p, n), device=dev)
-        lloyd_err = max(lloyd_err,
-                        check_lloyd(tag, xe, ce, we)[0])
-        pq_err = max(pq_err, check_pq(tag, xe, ce)[0])
+        lloyd_err = max(lloyd_err, check_lloyd(
+            tag, xe, cp, lmask, we,
+            DSUM_RTOL if dtype == torch.float32 else None)[0])
+        pq_err = max(pq_err, check_pq(tag, xe, cp, lmask)[0])
+    buf = torch.empty(3 * 1037 * DSUB + 1, device=dev)
+    xm = buf[1:].view(3, 1037, DSUB)
+    xm.copy_(normal(3, 1037, DSUB))
+    cm = normal(3, 4, DSUB)
+    lloyd_err = max(lloyd_err, check_lloyd(
+        "misaligned", xm, cm, None, torch.ones((3, 1037), device=dev))[0])
+    pq_err = max(pq_err, check_pq("misaligned", xm, cm)[0])
 
     # exact cover: every row is a centroid, so deviations and residuals are
-    # exactly 0; a centroid far away is an empty cluster (count 0, sums 0)
-    ce = normal(4, 4, DSUB)
-    ce[:, 3] = 1e3
-    pick = torch.randint(0, 3, (4, 2000), generator=gen).to(dev)
-    xe = torch.gather(ce, 1, pick.unsqueeze(-1).expand(-1, -1, DSUB))
-    ds, cnt = ops.lloyd_update(xe, ce)
-    zt, resid, codes = ops.pq_quantize(xe, ce)
-    torch.cuda.synchronize()
-    if float(ds.abs().max()) != 0.0 or float(resid.abs().max()) != 0.0 \
-            or not torch.equal(zt, xe) or not torch.equal(codes.long(), pick):
-        fail("exact cover is not an exact fixed point")
-    if float(cnt[:, 3].abs().max()) != 0.0:
-        fail("the empty cluster has a nonzero count")
-    say("parity", "exact cover: dsums and residual exactly 0; empty "
-        "cluster: count 0, dsums 0")
+    # exactly 0; a centroid far away is an empty cluster (count 0, sums 0);
+    # on d8 (L = 4) and generic (L = 3)
+    for l in (4, 3):
+        ce = normal(4, l, DSUB)
+        ce[:, -1] = 1e3
+        pick = torch.randint(0, l - 1, (4, 2000), generator=gen).to(dev)
+        xe = torch.gather(ce, 1, pick.unsqueeze(-1).expand(-1, -1, DSUB))
+        ds, cnt = ops.lloyd_update(xe, ce)
+        zt, resid, codes = ops.pq_quantize(xe, ce)
+        torch.cuda.synchronize()
+        if float(ds.abs().max()) != 0.0 or float(resid.abs().max()) != 0.0 \
+                or not torch.equal(zt, xe) \
+                or not torch.equal(codes.long(), pick):
+            fail(f"exact cover is not an exact fixed point (L={l})")
+        if float(cnt[:, -1].abs().max()) != 0.0:
+            fail(f"the empty cluster has a nonzero count (L={l})")
+    say("parity", "exact cover (L = 4 on d8, L = 3 on generic): dsums and "
+        "residual exactly 0; empty cluster: count 0, dsums 0")
 
     errs = {"lloyd_update": lloyd_err, "pq_quantize": pq_err}
     # kmeans_assign: the kmeans phase's grouping, then the edge shapes
     errs["kmeans_assign"] = max(
-        check_kmeans_assign("main", x[:, :M].contiguous(), c),
+        check_kmeans_assign("main", x, c),
         *(check_kmeans_assign(tag, normal(p, n, DSUB), normal(p, l, DSUB))
           for tag, (p, n, l) in {"ragged N": (3, 1037, 2),
-                                 "L=3 masked": (4, 5000, 3)}.items()))
+                                 "L=3": (4, 5000, 3)}.items()))
     # scalar_quantize: the chain's carrier, the standalone scalarq shape,
     # every width at a ragged N with a constant problem (scale 1)
     errs["scalar_quantize"] = check_scalar(
@@ -718,7 +790,7 @@ def phase_kmeans(gen):
     """batched_kmeans at the FEMNIST grouping on "auto" (the kernels: 5
     lloyd_update launches and 1 kmeans_assign) and on "torch" (none)."""
     from repro_torch.core import kmeans as km
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ref
 
     x = torch.randn((CLIENTS * R, M, DSUB), generator=gen).to("cuda")
     torch.cuda.synchronize()
@@ -738,8 +810,8 @@ def phase_kmeans(gen):
     torch.cuda.synchronize()
     if _build.launch_counts() != want:
         fail("the plain kmeans launched a kernel")
-    ties = ref.near_ties(x, *ops._pad_centroids(plain.centroids), TIE_RTOL) \
-        | ref.near_ties(x, *ops._pad_centroids(res.centroids), TIE_RTOL)
+    ties = ref.near_ties(x, plain.centroids, None, TIE_RTOL) \
+        | ref.near_ties(x, res.centroids, None, TIE_RTOL)
     differ = res.codes.long() != plain.codes.long()
     if bool((differ & ~ties).any()):
         fail(f"kmeans: {int((differ & ~ties).sum())} codes differ from "
@@ -1017,6 +1089,16 @@ def phase_serve(seed):
                            or "flash_cc_kernel" in key)
             say("times", f"serve prefill: flash_attention {flash_ms:.3f} ms, "
                 f"{flash_ms / sum(per_kernel.values()):.1%} of device time")
+            pq_ms = {name: sum(v for key, v in per_kernel.items()
+                               if any(k in key for k in keys))
+                     for name, keys in (
+                         ("lloyd_update", ("lloyd_d8", "lloyd_generic",
+                                           "lloyd_reduce")),
+                         ("pq_quantize", ("pq_d8", "pq_generic")))}
+            say("times", f"serve prefill: lloyd_update "
+                f"{pq_ms['lloyd_update'] * 1e3:.2f} us and pq_quantize "
+                f"{pq_ms['pq_quantize'] * 1e3:.2f} us of device time "
+                f"(together {sum(pq_ms.values()) * 1e3:.2f} us)")
         lg, caches = prefill()
         phase_profile("serve decode", lambda: decode(lg, caches), G,
                       "decode step")
@@ -1132,22 +1214,32 @@ def phase_serve_routes(model, plain_model, params, prompt, lg0, seed):
     lg_k0 = server_logits(model, params, prompt, acts_k)
 
     # both PQ kernels on the kernel route's cut, grouped as the quantizer
-    # groups it, from the centroids the path seeds (farthest-point) and
-    # the centroids it encodes with after its Lloyd iterations
-    groups = _to_groups(acts_k.float(), pq)
+    # groups it (in bf16, the cut's dtype), from the centroids the path
+    # seeds (farthest-point) and the centroids it encodes with after its
+    # Lloyd iterations; the f32 upcast of the groups must give the same
+    # codebooks bitwise
+    groups = _to_groups(acts_k, pq)
     seeds = km._init_centroids(groups, pq.num_clusters)
     cents = km.batched_lloyd(groups, pq.num_clusters, pq.kmeans_iters,
                              chunk=pq.kmeans_chunk, backend="cuda")
     if not torch.equal(cents.to(qb_k.codebooks.dtype),
                        qb_k.codebooks.reshape(cents.shape)):
         fail("serve cut: the re-run Lloyd iterations differ from the path's")
+    cents_f = km.batched_lloyd(groups.float(), pq.num_clusters,
+                               pq.kmeans_iters, chunk=pq.kmeans_chunk,
+                               backend="cuda")
+    if not torch.equal(cents, cents_f):
+        fail("serve cut: Lloyd on the f32 upcast differs from bf16")
+    say("serve", f"serve cut: Lloyd on the {groups.dtype} groups "
+        f"{tuple(groups.shape)} gives the path's codebooks, and bitwise "
+        f"those of its f32 upcast")
     # about 65536 rows a code: the plain order and the kernel's differ by
     # f32 rounding of Σ|terms|, not of |dsums| (the sums cancel near the
     # members' mean), so the plain-order check is the f64 one
     w = torch.ones(groups.shape[:2], device=dev)
     lloyd_err = max(
-        check_lloyd("serve cut, seeds", groups, seeds, w, None)[0],
-        check_lloyd("serve cut, final", groups, cents, w, None)[0])
+        check_lloyd("serve cut, seeds", groups, seeds, None, w, None)[0],
+        check_lloyd("serve cut, final", groups, cents, None, w, None)[0])
     pq_err = check_pq("serve cut", groups, cents)[0]
     del groups, w
 
@@ -1278,6 +1370,29 @@ def phase_profile(tag, run, n=3, unit="step"):
     return {e.key: e.self_device_time_total / n / 1e3 for e in events}
 
 
+def lloyd_work(x, l, weights=None):
+    """(bytes, operations) of one lloyd_update call: x and the codebook
+    (and the weights, where given) read once, dsums and counts written
+    once; per row 2·L·D for the scores, then D subtractions, D adds and a
+    count (a multiply more per value where weighted)."""
+    p, n, d = x.shape
+    nb = x.numel() * x.element_size() + p * l * d * 4 + p * l * (d + 1) * 4
+    if weights is not None:
+        nb += weights.numel() * 4 + l * 4
+    return nb, p * n * (2 * l * d + (3 if weights is not None else 2) * d
+                        + 1)
+
+
+def pq_work(x, l):
+    """(bytes, operations) of one pq_quantize call: x and the codebook read
+    once; z̃ (in x's dtype), the f32 residual and the int32 codes written
+    once; per row 2·L·D for the scores and D subtractions."""
+    p, n, d = x.shape
+    nb = 2 * x.numel() * x.element_size() + x.numel() * 4 + p * n * 4 \
+        + p * l * d * 4
+    return nb, p * n * (2 * l * d + d)
+
+
 def phase_times(gen, counts, errs, payload_codes, payload_words,
                 serve_counts):
     from repro_torch.kernels import ops, ref
@@ -1289,39 +1404,31 @@ def phase_times(gen, counts, errs, payload_codes, payload_words,
                                                   unpack_codes_kernel)
 
     dev = torch.device("cuda")
-    x = torch.zeros((CLIENTS * R, M_PAD, DSUB), device=dev)
-    x[:, :M] = torch.randn((CLIENTS * R, M, DSUB), generator=gen).to(dev)
-    w = (torch.arange(M_PAD, device=dev) < M).float() \
-        .expand(CLIENTS * R, -1).contiguous()
-    cp, lmask = ops._pad_centroids(
-        torch.randn((CLIENTS * R, L, DSUB), generator=gen).to(dev))
-    xq = x[:, :M].contiguous()
     p = CLIENTS * R
+    x = torch.randn((p, M, DSUB), generator=gen).to(dev)
+    c = torch.randn((p, L, DSUB), generator=gen).to(dev)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     rows = []
-    # lloyd_update: reads x, w, the codebook and mask; writes dsums, counts
+    # the main path's calls (no padding, no weights, L = 2 unmasked)
     rows.append(("lloyd_update", "src/repro_torch/csrc/lloyd_update.cu",
                  "src/repro/kernels/lloyd_update.py:87",
-                 lambda: lloyd_update_kernel(x, w, cp, lmask),
-                 lambda: ref.lloyd_update_ref(x, w, cp, lmask),
-                 nbytes(x, w, cp, lmask) + p * cp.shape[1] * (DSUB + 1) * 4,
-                 p * M_PAD * (2 * L * DSUB + 3 * DSUB + 1)))
-    # pq_quantize: reads x and the codebook; writes z̃, residual, codes
+                 lambda: lloyd_update_kernel(x, None, c),
+                 lambda: ref.lloyd_update_ref(x, None, c),
+                 *lloyd_work(x, L)))
     rows.append(("pq_quantize", "src/repro_torch/csrc/pq_quantize.cu",
                  "src/repro/kernels/pq_quantize.py:55",
-                 lambda: pq_quantize_kernel(xq, cp, lmask),
-                 lambda: ref.pq_quantize_ref(xq, cp, lmask),
-                 nbytes(xq, cp, lmask) + 2 * xq.numel() * 4 + p * M * 4,
-                 p * M * (2 * L * DSUB + DSUB)))
+                 lambda: pq_quantize_kernel(x, c),
+                 lambda: ref.pq_quantize_ref(x, c),
+                 *pq_work(x, L)))
     # kmeans_assign: reads x and the codebook; writes codes and sqdist
     rows.append(("kmeans_assign", "src/repro_torch/csrc/kmeans_assign.cu",
                  "src/repro/kernels/kmeans_assign.py:58",
-                 lambda: kmeans_assign_kernel(xq, cp, lmask),
-                 lambda: ref.kmeans_assign_ref(xq, cp, lmask),
-                 nbytes(xq, cp, lmask) + 2 * p * M * 4,
+                 lambda: kmeans_assign_kernel(x, c),
+                 lambda: ref.kmeans_assign_ref(x, c),
+                 nbytes(x, c) + 2 * p * M * 4,
                  p * M * (2 * L * DSUB + 2 * DSUB)))
     # scalar_quantize at the chain's carrier: reads x, lo, scale; writes
     # codes and recon; a subtract, divide, round, two clamps, a multiply
@@ -1366,6 +1473,19 @@ def phase_times(gen, counts, errs, payload_codes, payload_words,
                         "max_abs_err": errs[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None})
+    # like for like with PR 14's call of the same step: rows padded to the
+    # 4096-row chunk with 0/1 weights, L = 2 padded to 8 and masked
+    xp_ = torch.nn.functional.pad(x, (0, 0, 0, M_PAD - M))
+    wp_ = (torch.arange(M_PAD, device=dev) < M).float() \
+        .expand(p, -1).contiguous()
+    cp, lmask = ops._pad_centroids(c)
+    k_ms = device_ms(lambda: lloyd_update_kernel(xp_, wp_, cp, lmask))
+    nb, flops = lloyd_work(xp_, cp.shape[1], wp_)
+    b_ms, b_by = bound(nb, flops)
+    say("times", f"lloyd_update as PR 14 called it (x {tuple(xp_.shape)} "
+        f"padded, weights, L = {L} padded to {cp.shape[1]} and masked): "
+        f"kernel {k_ms * 1e3:.2f} us (device, CUDA graph); bound "
+        f"{b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.2f} MB)")
     kernels.append(time_flash(gen, counts, errs))
     time_serve_pq(gen, serve_counts)
     return kernels
@@ -1428,42 +1548,39 @@ def time_flash(gen, counts, errs):
 
 def time_serve_pq(gen, serve_counts):
     """lloyd_update and pq_quantize at the serve prefill's cut, grouped as
-    the quantizer groups it (4 problems of 1048576 x 8, L = 16, f32):
+    the quantizer groups it (4 problems of 1048576 x 8, L = 16, no
+    weights, no mask), with x in f32 and in bf16 (the serve path's):
     device time beside the bound and the plain version, and the launches
     per prefill."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.lloyd_update import lloyd_update_kernel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lloyd_update import (lloyd_update_kernel,
+                                                  row_route)
     from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 
     dev = torch.device("cuda")
     p, n, d = SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_D
-    x = torch.randn((p, n, d), generator=gen).to(dev)
-    w = torch.ones((p, n), device=dev)
-    cp, lmask = ops._pad_centroids(
-        torch.randn((p, SERVE_PQ_L, d), generator=gen).to(dev))
-    lc = cp.shape[1]
-    nb_x = x.numel() * 4
-    rows = [("lloyd_update", lambda: lloyd_update_kernel(x, w, cp, lmask),
-             lambda: ref.lloyd_update_ref(x, w, cp, lmask),
-             nb_x + w.numel() * 4 + (cp.numel() + lmask.numel()) * 4
-             + p * lc * (d + 1) * 4,
-             p * n * (2 * lc * d + 3 * d + 1)),
-            ("pq_quantize", lambda: pq_quantize_kernel(x, cp, lmask),
-             lambda: ref.pq_quantize_ref(x, cp, lmask),
-             3 * nb_x + (cp.numel() + lmask.numel()) * 4 + p * n * 4,
-             p * n * (2 * lc * d + d))]
-    for name, kern, plain, nb, flops in rows:
-        k_ms = device_ms(kern, calls=20, reps=10)
-        p_ms = eager_ms(plain, calls=10)
-        b_ms, b_by = bound(nb, flops)
-        launches = serve_counts.get(name, 0)
-        say("times", f"{name} at the serve cut ({p} x {n} x {d}, L = "
-            f"{SERVE_PQ_L}): kernel {k_ms * 1e3:.2f} us (device, CUDA "
-            f"graph), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us "
-            f"by {b_by} ({nb / 1e6:.1f} MB, {flops / 1e6:.1f} MOP); "
-            f"{launches} launches per prefill, {launches * k_ms * 1e3:.2f} "
-            f"us per prefill ({launches * (k_ms - b_ms) * 1e3:.2f} us above "
-            f"the bound)")
+    x32 = torch.randn((p, n, d), generator=gen).to(dev)
+    c = torch.randn((p, SERVE_PQ_L, d), generator=gen).to(dev)
+    for x in (x32, x32.to(torch.bfloat16)):
+        rows = [("lloyd_update", lambda: lloyd_update_kernel(x, None, c),
+                 lambda: ref.lloyd_update_ref(x, None, c),
+                 *lloyd_work(x, SERVE_PQ_L)),
+                ("pq_quantize", lambda: pq_quantize_kernel(x, c),
+                 lambda: ref.pq_quantize_ref(x, c), *pq_work(x, SERVE_PQ_L))]
+        for name, kern, plain, nb, flops in rows:
+            k_ms = device_ms(kern, calls=20, reps=10)
+            p_ms = eager_ms(plain, calls=10)
+            b_ms, b_by = bound(nb, flops)
+            launches = serve_counts.get(name, 0)
+            say("times", f"{name} at the serve cut ({p} x {n} x {d} "
+                f"{x.dtype}, L = {SERVE_PQ_L}, route "
+                f"{row_route(x, SERVE_PQ_L)}): kernel {k_ms * 1e3:.2f} us "
+                f"(device, CUDA graph), plain {p_ms * 1e3:.2f} us; bound "
+                f"{b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.1f} MB, "
+                f"{flops / 1e6:.1f} MOP), {b_ms / k_ms:.1%} of it reached; "
+                f"{launches} launches per prefill, "
+                f"{launches * k_ms * 1e3:.2f} us per prefill "
+                f"({launches * (k_ms - b_ms) * 1e3:.2f} us above the bound)")
 
 
 def main(argv=None) -> int:

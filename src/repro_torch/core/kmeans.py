@@ -16,7 +16,7 @@ Backend registry
 A backend bundles the three primitives the quantizer and ``kmeans`` run:
 
   * ``update(x, weights, cents) -> (dsums, counts)`` -- one Lloyd
-    iteration's deviation-accumulated statistics.
+    iteration's deviation-accumulated statistics (weights None = all 1).
   * ``encode(x, cents) -> (z̃, residual, codes)`` -- the fused final pass.
   * ``assign_dist(x, cents) -> (codes, sqdist)`` -- the nearest centroid
     and squared distance of every row, for ``kmeans``'s codes and
@@ -32,8 +32,11 @@ reference's PRNG key (the two draw different numbers).
 Numerics (as in the reference): the centroid update accumulates deviations
 from the current centroid, ``c_new = c_old + Σ onehot·(x − c_old) / count``,
 so a cluster that exactly covers its points is a fixed point in f32, and a
-cluster with count 0 keeps its centroid exactly. Rows padded to a chunk
-multiple carry weight 0.
+cluster with count 0 keeps its centroid exactly. On ``"torch"`` the rows
+are padded to a chunk multiple, as the reference's scan tiles them, and the
+padded rows carry weight 0; on ``"cuda"`` nothing is padded and no weights
+are built (the kernels mask their ragged last tile), and x is read in its
+own dtype (f32 or bf16; the kernels upcast in registers, exactly).
 """
 
 from __future__ import annotations
@@ -59,20 +62,16 @@ class Backend(NamedTuple):
     assign_dist: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _all_valid(c: torch.Tensor) -> torch.Tensor:
-    return torch.ones(c.shape[-2], device=c.device)
-
-
 def _update_torch(x, weights, cents):
-    return ref.lloyd_update_ref(x, weights, cents, _all_valid(cents))
+    return ref.lloyd_update_ref(x, weights, cents)
 
 
 def _encode_torch(x, cents):
-    return ref.pq_quantize_ref(x, cents, _all_valid(cents))
+    return ref.pq_quantize_ref(x, cents)
 
 
 def _assign_dist_torch(x, cents):
-    codes, sqdist = ref.kmeans_assign_ref(x, cents, _all_valid(cents))
+    codes, sqdist = ref.kmeans_assign_ref(x, cents)
     return codes.to(torch.int32), sqdist
 
 
@@ -133,17 +132,18 @@ def get_backend(name: str, device: torch.device) -> Backend:
 def _init_centroids(x: torch.Tensor, num_clusters: int,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """Seeds on a strided subsample, per problem: x (P, N, D) f32 ->
-    (P, L, D). Without a generator, deterministic farthest-point (each next
-    seed the first point farthest from the seeds so far); with one,
+    """Seeds on a strided subsample, per problem: x (P, N, D) -> f32
+    (P, L, D) (the subsample is upcast; bf16 -> f32 is exact). Without a
+    generator, deterministic farthest-point (each next seed the first
+    point farthest from the seeds so far); with one,
     kmeans++: each next seed drawn with probability ∝ its squared distance
     to the seeds so far (floored at 1e-30, as the reference's logits)."""
     p, n, d = x.shape
     L = num_clusters
     m = min(n, max(4 * L, 256))
-    xs = x[:, ::max(n // m, 1)][:, :m]
+    xs = x[:, ::max(n // m, 1)][:, :m].float()
     rows = torch.arange(p, device=x.device)
-    cents = torch.zeros((p, L, d), dtype=x.dtype, device=x.device)
+    cents = torch.zeros((p, L, d), dtype=torch.float32, device=x.device)
     cents[:, 0] = xs[:, 0]
     mind = (xs - xs[:, :1]).square().sum(-1)
     for l in range(1, L):
@@ -167,8 +167,8 @@ def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
 
     ``init_centroids`` (P, L, D) warm-starts them from a previous round's
     codebooks instead of seeding; ``num_iters=0`` then returns the
-    initializer unchanged (in f32)."""
-    x = x.float()
+    initializer unchanged (in f32). The centroids and their update are
+    f32 whatever x's dtype."""
     p, n, d = x.shape
     L = num_clusters
     b = get_backend(backend, x.device)
@@ -181,15 +181,19 @@ def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
         cents = _init_centroids(x, L, generator)
     if num_iters == 0:
         return cents
-    # pad N up to a multiple of chunk, as the reference's scan tiles do;
-    # padded rows carry zero weight
-    chunk = min(chunk, max(n, 1))
-    n_pad = (-n) % chunk
-    x_pad = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
-    weights = (torch.arange(n + n_pad, device=x.device) < n).float() \
-        .expand(p, -1).contiguous()
+    if b.name == "cuda":
+        weights = None
+    else:
+        # pad N up to a multiple of chunk, as the reference's scan tiles
+        # do; padded rows carry zero weight
+        x = x.float()
+        chunk = min(chunk, max(n, 1))
+        n_pad = (-n) % chunk
+        x = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
+        weights = (torch.arange(n + n_pad, device=x.device) < n).float() \
+            .expand(p, -1).contiguous()
     for _ in range(num_iters):
-        dsums, counts = b.update(x_pad, weights, cents)
+        dsums, counts = b.update(x, weights, cents)
         # empty clusters keep their previous centroid
         cnt = counts.unsqueeze(-1)
         cents = cents + torch.where(cnt > 0, dsums / cnt.clamp_min(1.0), 0.0)

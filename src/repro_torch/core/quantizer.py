@@ -182,7 +182,10 @@ def quantize(z: torch.Tensor, cfg: PQConfig,
     from ``state.codebooks``. ``generator`` seeds a cold round by kmeans++.
     """
     c, n, d = z.shape
-    groups = _to_groups(z.float(), cfg)                  # (C·R, M, dsub)
+    # grouped in the cut's own dtype where the kernels read it (f32, bf16:
+    # they upcast in registers, exactly); Lloyd's centroids are f32
+    zg = z if z.dtype in (torch.float32, torch.bfloat16) else z.float()
+    groups = _to_groups(zg, cfg)                         # (C·R, M, dsub)
     if state is None:
         cents = _km.batched_lloyd(groups, cfg.num_clusters, cfg.kmeans_iters,
                                   generator=generator,

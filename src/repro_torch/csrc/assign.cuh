@@ -5,10 +5,22 @@
 //   code = argmax_l (2·x·c_l − ‖c_l‖²)   over l with lmask[l] > 0,
 // which is the argmin of ‖x − c_l‖² (‖x‖² does not depend on l). Masked
 // centroids score kNeg and never win; ties go to the first index, as
-// jnp.argmax and torch.argmax do. D and L are small (D = 8, L <= 16 on the
-// FEMNIST path), below any tensor-core tile, so the dot products are plain
-// FMAs over a row and a codebook that sit in shared memory.
+// jnp.argmax and torch.argmax do. A null lmask means every centroid is
+// valid. D and L are small (D = 8, L <= 16 on the main paths), below any
+// tensor-core tile, so the dot products are plain FMAs over a row and a
+// codebook that sits in shared memory.
+//
+// Two forms of the same arithmetic: assign_row_best reads the row from
+// shared memory at run-time D and L (the generic route and kmeans_assign),
+// assign_row_reg reads it from registers at compile-time D and L (the d8
+// route). Both run k ascending in one fmaf chain per centroid, then
+// 2·dot − ‖c‖² as one fmaf (2·dot is exact, so this is the rounding of the
+// subtraction alone), then a strict >, so they give the same code bit for
+// bit.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
 
 #include <cmath>
 
@@ -20,14 +32,21 @@ constexpr float kNeg = -1e30f;
 // per row then reads its row without bank conflicts.
 __host__ __device__ __forceinline__ int row_stride(int d) { return d | 1; }
 
-// Loads the (l, d) codebook and the (l,) mask into shared memory and computes
-// the squared norms. Call with the whole block; ends with a barrier.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Loads the (l, d) codebook and the (l,) mask (all 1 when lmask is null)
+// into shared memory and computes the squared norms. Call with the whole
+// block; ends with a barrier.
 __device__ __forceinline__ void load_codebook(const float* __restrict__ c,
                                               const float* __restrict__ lmask,
                                               float* cs, float* cn, float* ms,
                                               int l, int d) {
   for (int e = threadIdx.x; e < l * d; e += blockDim.x) cs[e] = c[e];
-  for (int e = threadIdx.x; e < l; e += blockDim.x) ms[e] = lmask[e];
+  for (int e = threadIdx.x; e < l; e += blockDim.x)
+    ms[e] = lmask ? lmask[e] : 1.f;
   __syncthreads();
   for (int li = threadIdx.x; li < l; li += blockDim.x) {
     float s = 0.f;
@@ -38,12 +57,14 @@ __device__ __forceinline__ void load_codebook(const float* __restrict__ c,
 }
 
 // Copies rows [0, rows) of a contiguous (rows, d) tile into shared memory
-// with row stride row_stride(d); consecutive threads read consecutive floats.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+// as f32 with row stride row_stride(d); consecutive threads read consecutive
+// elements.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src,
                                           float* xs, int rows, int d) {
   const int stride = row_stride(d);
   for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-    xs[(e / d) * stride + e % d] = src[e];
+    xs[(e / d) * stride + e % d] = to_f32(src[e]);
 }
 
 // The row's code, and its best score in *best_score (kmeans_assign.cu turns
@@ -58,7 +79,7 @@ __device__ __forceinline__ int assign_row_best(const float* xr,
   for (int li = 0; li < l; ++li) {
     float dot = 0.f;
     for (int k = 0; k < d; ++k) dot = fmaf(xr[k], cs[li * d + k], dot);
-    float s = 2.f * dot - cn[li];
+    float s = fmaf(2.f, dot, -cn[li]);  // 2·dot is exact: one rounding
     if (!(ms[li] > 0.f)) s = kNeg;
     if (s > best) {
       best = s;
@@ -74,6 +95,108 @@ __device__ __forceinline__ int assign_row(const float* xr, const float* cs,
                                           int l, int d) {
   float best;
   return assign_row_best(xr, cs, cn, ms, l, d, &best);
+}
+
+// assign_row's arithmetic on a row held in registers, at compile-time L and
+// D, against a codebook and norms held in registers or shared memory;
+// kMasked false skips the mask (every centroid valid). The scan runs over
+// groups of 4 consecutive centroids, each from -inf as assign_row runs,
+// and the groups' (best, code) merge left to right by the same strict >
+// (the right group wins only if its best is greater): this is assign_row's
+// result in every case (first index of the maximum; NaN scores never win),
+// with a shorter chain of dependent compares.
+template <int L, int D, bool kMasked>
+__device__ __forceinline__ int assign_row_reg(const float (&xr)[D],
+                                              const float (&cs)[L * D],
+                                              const float (&cn)[L],
+                                              const float* ms) {
+  constexpr int G = L < 4 ? L : 4;  // centroids per group
+  constexpr int NG = L / G;
+  static_assert(NG * G == L && (NG & (NG - 1)) == 0,
+                "L must be a power of two");
+  float gb[NG];
+  int gc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float best = -INFINITY;
+    int code = g * G;
+#pragma unroll
+    for (int li = g * G; li < (g + 1) * G; ++li) {
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) dot = fmaf(xr[k], cs[li * D + k], dot);
+      float s = fmaf(2.f, dot, -cn[li]);  // 2·dot is exact: one rounding
+      if (kMasked && !(ms[li] > 0.f)) s = kNeg;
+      if (s > best) {
+        best = s;
+        code = li;
+      }
+    }
+    gb[g] = best;
+    gc[g] = code;
+  }
+#pragma unroll
+  for (int step = 1; step < NG; step *= 2)
+#pragma unroll
+    for (int g = 0; g + step < NG; g += 2 * step)
+      if (gb[g + step] > gb[g]) {
+        gb[g] = gb[g + step];
+        gc[g] = gc[g + step];
+      }
+  return gc[0];
+}
+
+template <int L, int D>
+__device__ __forceinline__ int assign_row_reg(const float (&xr)[D],
+                                              const float (&cs)[L * D],
+                                              const float (&cn)[L],
+                                              const float* ms, bool masked) {
+  return masked ? assign_row_reg<L, D, true>(xr, cs, cn, ms)
+                : assign_row_reg<L, D, false>(xr, cs, cn, ms);
+}
+
+// ---------------------------------------------------------------------------
+// Rows of 8 values in registers: one 32-byte f32 row is two 16-byte loads,
+// one 16-byte bf16 row is one. The address must be 16-byte aligned.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void row8_from(const float* p, float (&r)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+}
+
+__device__ __forceinline__ void row8_from(const __nv_bfloat16* p,
+                                          float (&r)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // a bf16 is the top half of an f32: the upcast is exact
+    r[2 * i] = __uint_as_float(w[i] << 16);
+    r[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Streaming stores (evict-first): nothing re-reads them in this kernel.
+__device__ __forceinline__ void row8_store(float* p, const float (&r)[8]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1,
+         make_float4(r[4], r[5], r[6], r[7]));
+}
+
+__device__ __forceinline__ void row8_store(__nv_bfloat16* p,
+                                           const float (&r)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(r[2 * i]));
+    const uint32_t hi =
+        __bfloat16_as_ushort(__float2bfloat16_rn(r[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
 }
 
 }  // namespace repro_torch

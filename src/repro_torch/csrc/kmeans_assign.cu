@@ -6,7 +6,8 @@
 // For every problem p and row i, over valid centroids:
 //   codes[i]  = argmax_l (2·x_i·c_l − ‖c_l‖²)                  (int32)
 //   sqdist[i] = max(‖x_i‖² − max_l (2·x_i·c_l − ‖c_l‖²), 0)     (f32)
-// x (P, N, D) f32, c (P, L, D) f32, lmask (L,) f32.
+// x (P, N, D) f32, c (P, L, D) f32, lmask (L,) f32 or null (every centroid
+// valid).
 //
 // What bounds it on the H100: bytes. It reads x once and writes a code and
 // a distance per row (9.2 MB on the FEMNIST grouping, 10 x 23040 x 8),

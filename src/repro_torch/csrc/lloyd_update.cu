@@ -7,12 +7,16 @@
 //   codes[i]  = argmax_l (2·x_i·c_l − ‖c_l‖²)
 //   dsums[l]  = Σ_i w_i·1[codes_i = l]·(x_i − c_l)      (f32)
 //   counts[l] = Σ_i w_i·1[codes_i = l]
-// x (P, N, D) f32, w (P, N) f32, c (P, L, D) f32, lmask (L,) f32;
+// x (P, N, D) f32 or bf16 (upcast in registers, as the TPU kernel upcasts
+// its block), w (P, N) f32 or null (every weight 1; no weights are read),
+// c (P, L, D) f32, lmask (L,) f32 or null (every centroid valid);
 // dsums (P, L, D) f32, counts (P, L) f32.
 //
-// What bounds it on the H100: bytes. A launch reads x and w once
-// (P·N·(D+1)·4 bytes, 8.85 MB on the FEMNIST step) and does L·D FMAs per
-// row, far below the ~20 flop/byte at which f32 FMAs would bound it.
+// What bounds it on the H100: bytes. A launch reads x once (P·N·D·4 bytes
+// in f32: 7.4 MB on the FEMNIST step, 134 MB at the serve cut; half that
+// in bf16) against L·D FMAs of assignment and D+1 adds per row. At L = 16
+// the instructions per row come close to the bytes: they are what the
+// design keeps few.
 //
 // What the design does about it and about the TPU original:
 //  * The Pallas kernel accumulates into one output block that every grid
@@ -21,31 +25,142 @@
 //    and a second, small kernel adds a problem's partials in block order.
 //    There are no floating-point atomics, so a run is bitwise the same as
 //    the run before it.
-//  * Each block streams its rows through shared memory in tiles of
-//    kThreads rows, read with coalesced loads (one read of x).
+//  * Route d8 (D = 8, L in {2, 4, 8, 16}, x 16-byte aligned): a grid of a
+//    few persistent blocks per SM streams the rows (stream.cuh: bulk
+//    asynchronous copies into a ring in shared memory, kD8Rows rows per
+//    thread per tile, upcast in registers). Each thread adds its strided
+//    rows in row order into its own column of L·(D+1) sums in shared
+//    memory, indexed by the row's code: D+1 adds a row, where sums held in
+//    registers would take L·(D+1) predicated adds and every register at
+//    L = 16. At the end a warp adds its lanes by an xor-shuffle tree, the
+//    warps' sums are added in warp order, and the block writes one partial
+//    per output. The codebook and its norms are read into shared memory
+//    once per block, and from there into registers for the scores.
+//  * Route generic (any D <= 64, L <= 64, any alignment): each block takes
+//    rows_per_block rows in tiles of kThreads rows through shared memory,
+//    and every output element (l, k) has one owner thread that adds the
+//    tile's rows in row order.
 //  * D and L are below tensor-core sizes: the distances are FMAs against a
 //    codebook in shared memory (assign.cuh), and the TPU kernel's one-hot
 //    matmul becomes an indexed read of the chosen centroid.
-//  * Inside a block every output element (l, k) has one owner thread that
-//    adds the tile's rows in row order: a fixed order, no atomics.
 //  * Deviations x − c_l are accumulated, not raw sums, so a cluster that
 //    covers its points exactly gets an update of exactly 0; rows of weight
-//    0 (padding) add exactly 0.
+//    0 add exactly 0. A weight multiplies with __fmul_rn, so no FMA
+//    contraction rounds a weighted term differently from the plain
+//    version's w·(x − c).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "assign.cuh"
+#include "stream.cuh"
 
 namespace {
 
 using namespace repro_torch;
 
+// ---------------------------------------------------------------------------
+// route d8
+// ---------------------------------------------------------------------------
+
+constexpr int kD8Threads = 128;  // consumer threads
+constexpr int kD8Rows = 4;       // rows per thread per tile
+constexpr int kD8Warps = kD8Threads / 32;
+constexpr int kD8Stages = 2;     // tiles in the ring
+
+// A d8 block's dynamic shared memory: each consumer thread's L·(D+1) sums,
+// output o of thread t at [o·kD8Threads + t] (a warp's 32 threads hit 32
+// banks whatever their codes).
+template <int L>
+constexpr size_t d8_sums_bytes() {
+  return sizeof(float) * L * 9 * kD8Threads;
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(kD8Threads + 32, 2)
+lloyd_d8(const T* __restrict__ x, const float* __restrict__ w,
+         const float* __restrict__ c, const float* __restrict__ lmask,
+         float* __restrict__ partials, int n) {
+  constexpr int D = 8, NOUT = L * (D + 1);
+  __shared__ float cs[L * D], cn[L], ms[L];
+  __shared__ float red[kD8Warps][NOUT];
+  __shared__ RowRing<T, kD8Threads, kD8Rows, kD8Stages> ring;
+  extern __shared__ float sums[];  // [NOUT][kD8Threads]
+  const int p = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < NOUT * kD8Threads; e += blockDim.x) sums[e] = 0.f;
+  load_codebook(c + (size_t)p * L * D, lmask, cs, cn, ms, L, D);  // syncs
+  // the scores read the codebook from registers, the deviations from
+  // shared memory (indexed by the code)
+  float cr[L * D], cnr[L];
+#pragma unroll
+  for (int e = 0; e < L * D; ++e) cr[e] = cs[e];
+#pragma unroll
+  for (int li = 0; li < L; ++li) cnr[li] = cn[li];
+  const bool masked = lmask != nullptr;
+  const float* wp = w ? w + (size_t)p * n : nullptr;
+  float* mine = sums + tid;
+
+  const bool consumer = stream_rows(
+      x + (size_t)p * n * D, (size_t)n, b, nb, ring,
+      [&](size_t row0, int nr, const float (&xr)[kD8Rows][D]) {
+        int code[kD8Rows];
+#pragma unroll
+        for (int r = 0; r < kD8Rows; ++r)
+          code[r] = assign_row_reg<L, D>(xr[r], cr, cnr, ms, masked);
+#pragma unroll
+        for (int r = 0; r < kD8Rows; ++r) {
+          if (r >= nr) break;
+          float dv[D];
+#pragma unroll
+          for (int k = 0; k < D; ++k)
+            dv[k] = xr[r][k] - cs[code[r] * D + k];
+          float wi = 1.f;
+          if (wp) {
+            wi = wp[row0 + (size_t)r * kD8Threads];
+#pragma unroll
+            for (int k = 0; k < D; ++k) dv[k] = __fmul_rn(wi, dv[k]);
+          }
+          float* a = mine + code[r] * (D + 1) * kD8Threads;
+#pragma unroll
+          for (int k = 0; k < D; ++k) a[k * kD8Threads] += dv[k];
+          a[D * kD8Threads] += wi;
+        }
+      });
+  if (!consumer) return;
+
+  // lanes: an xor-shuffle tree (every lane ends with the warp's sum), then
+  // the warps in warp order, then one partial per output
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll 4
+  for (int o = 0; o < NOUT; ++o) {
+    float v = mine[o * kD8Threads];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][o] = v;
+  }
+  consumers_sync<kD8Threads>();
+  float* out = partials + ((size_t)p * nb + b) * NOUT;
+  for (int o = tid; o < NOUT; o += kD8Threads) {
+    float s = red[0][o];
+#pragma unroll
+    for (int wi = 1; wi < kD8Warps; ++wi) s += red[wi][o];
+    out[o] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// route generic
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;  // rows per tile = threads per block
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lloyd_partials(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ c, const float* __restrict__ lmask,
-               float* __restrict__ partials, int n, int l, int d,
-               int rows_per_block) {
+lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ c, const float* __restrict__ lmask,
+              float* __restrict__ partials, int n, int l, int d,
+              int rows_per_block) {
   extern __shared__ float smem[];
   const int p = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   const int tid = threadIdx.x;
@@ -62,8 +177,8 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ w,
   for (int o = tid; o < nout; o += kThreads) acc[o] = 0.f;
   load_codebook(c + (size_t)p * l * d, lmask, cs, cn, ms, l, d);
 
-  const float* xp = x + (size_t)p * n * d;
-  const float* wp = w + (size_t)p * n;
+  const T* xp = x + (size_t)p * n * d;
+  const float* wp = w ? w + (size_t)p * n : nullptr;
   const int row_end = min((b + 1) * rows_per_block, n);
   for (int t0 = b * rows_per_block; t0 < row_end; t0 += kThreads) {
     const int rows = min(kThreads, row_end - t0);
@@ -71,7 +186,7 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
     if (tid < rows) {
       cd[tid] = assign_row(xs + tid * xstride, cs, cn, ms, l, d);
-      ws[tid] = wp[t0 + tid];
+      ws[tid] = wp ? wp[t0 + tid] : 1.f;
     }
     __syncthreads();
     for (int o = tid; o < nout; o += kThreads) {
@@ -80,7 +195,7 @@ lloyd_partials(const float* __restrict__ x, const float* __restrict__ w,
       if (k < d) {
         const float ck = cs[li * d + k];
         for (int r = 0; r < rows; ++r)
-          if (cd[r] == li) s += ws[r] * (xs[r * xstride + k] - ck);
+          if (cd[r] == li) s += __fmul_rn(ws[r], xs[r * xstride + k] - ck);
       } else {
         for (int r = 0; r < rows; ++r)
           if (cd[r] == li) s += ws[r];
@@ -112,34 +227,130 @@ __global__ void lloyd_reduce(const float* __restrict__ partials,
   }
 }
 
-}  // namespace
+// Lets the instance take its dynamic shared memory (above the default 48
+// KB at L = 16), once per device; the first call comes before any launch,
+// from lloyd_update_d8_occupancy.
+template <typename T, int L>
+cudaError_t prepare_d8() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= 64 || done[dev]) return e;
+  e = cudaFuncSetAttribute(lloyd_d8<T, L>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)d8_sums_bytes<L>());
+  done[dev] = e == cudaSuccess;
+  return e;
+}
 
-// partials: scratch of nblocks·P·L·(D+1) floats, allocated by the caller;
-// nblocks = ceil(n / rows_per_block), rows_per_block a multiple of kThreads.
-extern "C" int lloyd_update_launch(const void* x, const void* w,
-                                   const void* c, const void* lmask,
-                                   void* partials, void* dsums, void* counts,
-                                   int p, int n, int l, int d,
-                                   int rows_per_block, int nblocks,
-                                   void* stream) {
-  if (p == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T, int L>
+cudaError_t launch_d8(const void* x, const void* w, const void* c,
+                      const void* lmask, void* partials, int p, int n,
+                      int nblocks, cudaStream_t s) {
+  cudaError_t e = prepare_d8<T, L>();
+  if (e != cudaSuccess) return e;
+  lloyd_d8<T, L><<<dim3(nblocks, p), kD8Threads + 32, d8_sums_bytes<L>(),
+                   s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(c), static_cast<const float*>(lmask),
+      static_cast<float*>(partials), n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d8_l(const void* x, const void* w, const void* c,
+                        const void* lmask, void* partials, int p, int n,
+                        int l, int nblocks, cudaStream_t s) {
+  switch (l) {
+    case 2: return launch_d8<T, 2>(x, w, c, lmask, partials, p, n, nblocks, s);
+    case 4: return launch_d8<T, 4>(x, w, c, lmask, partials, p, n, nblocks, s);
+    case 8: return launch_d8<T, 8>(x, w, c, lmask, partials, p, n, nblocks, s);
+    case 16:
+      return launch_d8<T, 16>(x, w, c, lmask, partials, p, n, nblocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks per SM of the d8 instance (T, L), 0 on an error.
+template <typename T, int L>
+int d8_occupancy() {
+  int blocks = 0;
+  if (prepare_d8<T, L>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, lloyd_d8<T, L>, kD8Threads + 32, d8_sums_bytes<L>()) !=
+          cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+template <typename T>
+int d8_occupancy_l(int l) {
+  switch (l) {
+    case 2: return d8_occupancy<T, 2>();
+    case 4: return d8_occupancy<T, 4>();
+    case 8: return d8_occupancy<T, 8>();
+    case 16: return d8_occupancy<T, 16>();
+    default: return 0;
+  }
+}
+
+template <typename T>
+cudaError_t launch_generic(const void* x, const void* w, const void* c,
+                           const void* lmask, void* partials, int p, int n,
+                           int l, int d, int rows_per_block, int nblocks,
+                           cudaStream_t s) {
   const size_t smem =
       sizeof(float) * ((size_t)l * d + 2 * l + (size_t)l * (d + 1) +
                        (size_t)kThreads * row_stride(d) + kThreads) +
       sizeof(int) * kThreads;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        lloyd_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lloyd_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
   }
+  lloyd_generic<T><<<dim3(nblocks, p), kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(c), static_cast<const float*>(lmask),
+      static_cast<float*>(partials), n, l, d, rows_per_block);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Resident blocks per SM of the d8 instance for (l, bf16), for the caller's
+// grid (0 where there is no such instance).
+extern "C" int lloyd_update_d8_occupancy(int l, int bf16) {
+  return bf16 ? d8_occupancy_l<__nv_bfloat16>(l) : d8_occupancy_l<float>(l);
+}
+
+// route 1 = d8 (rows = its kD8Threads·kD8Rows rows per tile), 0 = generic
+// (rows = rows per block, a multiple of kThreads); w and lmask may be null.
+// partials: scratch of nblocks·P·L·(D+1) floats, allocated by the caller.
+extern "C" int lloyd_update_launch(const void* x, const void* w,
+                                   const void* c, const void* lmask,
+                                   void* partials, void* dsums, void* counts,
+                                   int p, int n, int l, int d, int route,
+                                   int bf16, int rows, int nblocks,
+                                   void* stream) {
+  if (p == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nblocks > 0) {
-    lloyd_partials<<<dim3(nblocks, p), kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(c), static_cast<const float*>(lmask),
-        static_cast<float*>(partials), n, l, d, rows_per_block);
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e;
+    if (route == 1) {
+      if (d != 8 || rows != kD8Threads * kD8Rows)
+        return (int)cudaErrorInvalidValue;
+      e = bf16 ? launch_d8_l<__nv_bfloat16>(x, w, c, lmask, partials, p, n,
+                                             l, nblocks, s)
+               : launch_d8_l<float>(x, w, c, lmask, partials, p, n, l,
+                                    nblocks, s);
+    } else {
+      if (rows % kThreads != 0) return (int)cudaErrorInvalidValue;
+      e = bf16 ? launch_generic<__nv_bfloat16>(x, w, c, lmask, partials, p,
+                                                n, l, d, rows, nblocks, s)
+               : launch_generic<float>(x, w, c, lmask, partials, p, n, l, d,
+                                       rows, nblocks, s);
+    }
     if (e != cudaSuccess) return (int)e;
   }
   lloyd_reduce<<<p, 128, 0, s>>>(static_cast<const float*>(partials),

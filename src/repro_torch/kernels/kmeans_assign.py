@@ -17,31 +17,35 @@ pick the other code, and its distances to f32 rounding.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lloyd_update import check_cuda_inputs
+from repro_torch.kernels.lloyd_update import _ptr, check_cuda_inputs
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
-                         lmask: torch.Tensor):
-    """x (P, N, D), centroids (P, L, D), lmask (L,).
+                         lmask: Optional[torch.Tensor] = None):
+    """x (P, N, D) f32, centroids (P, L, D), lmask (L,) or None (every
+    centroid valid).
 
     Returns (codes (P, N) int32, sqdist (P, N) f32)."""
     if x.device.type == "cpu":
         codes, sqdist = ref.kmeans_assign_ref(x, centroids, lmask)
         return codes.to(torch.int32), sqdist
     check_cuda_inputs("kmeans_assign", x, centroids, lmask)
+    if x.dtype != torch.float32:
+        raise ValueError(f"kmeans_assign: x must be f32, got {x.dtype}")
     p, n, d = x.shape
     l = centroids.shape[1]
     lib = _build.load("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
     sqdist = torch.empty((p, n), device=x.device, dtype=torch.float32)
     rc = lib.kmeans_assign_launch(
-        x.data_ptr(), centroids.data_ptr(), lmask.data_ptr(),
+        x.data_ptr(), centroids.data_ptr(), _ptr(lmask),
         codes.data_ptr(), sqdist.data_ptr(), p, n, l, d,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

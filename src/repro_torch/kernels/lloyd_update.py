@@ -8,55 +8,163 @@ The kernel is ``csrc/lloyd_update.cu``; its plain version is
     dsums[l]  = Σ_i w_i·1[codes_i = l]·(x_i − c_l)
     counts[l] = Σ_i w_i·1[codes_i = l]
 
+x is f32 or bf16 (the kernel upcasts in registers, exactly); the weights
+and the centroid mask are optional (None: every weight 1, every centroid
+valid), and the kernel then reads neither.
+
+Two routes, picked by ``row_route``: ``d8`` (D = 8, L in ``D8_L``, x
+16-byte aligned: persistent blocks stream whole rows into registers, sums
+per thread in shared memory, an xor-shuffle tree per warp) and
+``generic`` (any D <= 64, L <= 64: tiles in shared memory, one owner
+thread per output). Both write
+per-block partials that a second pass adds in block order: no atomics, so
+a run is bitwise the run before it. ``lloyd_layout`` gives a call's route
+and grid, and ``lloyd_update_in_kernel_order`` sums the plain version's
+terms in that route's order, which the kernel meets bit for bit (given the
+same codes and 0/1 weights).
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises. The kernel adds each problem's per-block
-partial sums in a fixed order (no atomics), so it is bitwise reproducible
-from run to run; its sums are taken in another order than the plain
-version's, so the two agree to f32 rounding (exactly on ``counts`` of 0/1
-weights, and on the exact-cover and empty-cluster fixed points).
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-ROWS_PER_BLOCK = 1024   # 4 tiles of 256 rows per block (see the .cu file)
+ROWS_PER_BLOCK = 1024   # generic route: 4 tiles of 256 rows per block
+D8_THREADS = 128        # d8 route: consumer threads per block
+D8_TILE = 4 * D8_THREADS  # d8 route: rows per tile, 4 per thread
+D8_MIN_TILES = 2        # d8 route: tiles a block takes at least, where the
+#                         problem has them (measured on an H100, PERF.md)
+D8_L = (2, 4, 8, 16)    # the d8 route's compiled codebook sizes
 MAX_D = 64
 MAX_L = 64
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+class Layout(NamedTuple):
+    """A launch's route and grid, which fix its summation order."""
+    route: str      # "d8" or "generic"
+    rows: int       # d8: rows per tile; generic: rows per block
+    blocks: int     # blocks per problem
+    threads: int = D8_THREADS   # d8: consumer threads per block
+
+
+def row_route(x: torch.Tensor, num_centroids: int) -> str:
+    """``"d8"`` for rows of 8 values, L in ``D8_L`` and an x whose address
+    is a multiple of 16 bytes (what 16-byte loads and bulk copies take);
+    ``"generic"`` for anything else."""
+    if x.shape[-1] == 8 and num_centroids in D8_L \
+            and x.data_ptr() % 16 == 0:
+        return "d8"
+    return "generic"
+
+
+def d8_blocks(p: int, n: int, sms: int, per_sm: int, tile: int,
+              min_tiles: int) -> int:
+    """Blocks per problem of a d8 grid with tiles of ``tile`` rows: the
+    card's resident blocks shared among the P problems, but no fewer than
+    ``min_tiles`` tiles a block where the problem has them (a block's
+    set-up, and the ring's first fill, are paid per block), and at least
+    1."""
+    tiles = -(-n // tile)
+    return max(1, min(-(-tiles // min_tiles), sms * per_sm // max(p, 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def d8_occupancy(lib_name: str, fn: str, num_centroids: int, bf16: bool,
+                 device: int) -> int:
+    """Resident blocks per SM of a d8 instance, as the CUDA runtime
+    reports it; asked once per instance and card, before any graph
+    capture."""
+    lib = _build.load(lib_name, fn, [ctypes.c_int, ctypes.c_int])
+    with torch.cuda.device(device):
+        per_sm = getattr(lib, fn)(num_centroids, int(bf16))
+    if per_sm < 1:
+        raise RuntimeError(f"{lib_name}: no d8 instance fits an SM at "
+                           f"L={num_centroids}, bf16={bf16}")
+    return per_sm
+
+
+def d8_grid(lib_name: str, fn: str, x: torch.Tensor, num_centroids: int,
+            tile: int, min_tiles: int) -> int:
+    """Blocks per problem of a d8 launch on x's card. The f32 and the bf16
+    instance get the same grid (the fewer resident blocks of the two), so
+    that a bf16 x sums in the order of its f32 upcast."""
+    p, n, _ = x.shape
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    per_sm = min(d8_occupancy(lib_name, fn, num_centroids, bf16, dev)
+                 for bf16 in (False, True))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return d8_blocks(p, n, sms, per_sm, tile, min_tiles)
+
+
+def lloyd_layout(x: torch.Tensor, num_centroids: int) -> Layout:
+    """The route and grid ``lloyd_update_kernel`` launches for this x (on
+    its card) and L."""
+    if row_route(x, num_centroids) == "generic":
+        return Layout("generic", ROWS_PER_BLOCK,
+                      -(-x.shape[1] // ROWS_PER_BLOCK))
+    return Layout("d8", D8_TILE,
+                  d8_grid("lloyd_update", "lloyd_update_d8_occupancy", x,
+                          num_centroids, D8_TILE, D8_MIN_TILES),
+                  D8_THREADS)
 
 
 def check_cuda_inputs(name: str, x: torch.Tensor, centroids: torch.Tensor,
-                      lmask: torch.Tensor, *others: torch.Tensor) -> None:
-    """What the CUDA kernels take: f32, contiguous, on one CUDA device,
-    x (P, N, D) with centroids (P, L, D) and lmask (L,), D and L bounded."""
+                      lmask: Optional[torch.Tensor],
+                      weights: Optional[torch.Tensor] = None) -> None:
+    """What the CUDA kernels take, on one CUDA device, all contiguous: x
+    (P, N, D) f32 or bf16, centroids (P, L, D) f32, lmask (L,) f32 or None,
+    weights (P, N) f32 or None; D <= MAX_D, L <= MAX_L."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {x.device}")
-    for t in (x, centroids, lmask, *others):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: every input must be a contiguous f32 "
-                             f"tensor on {x.device}; got {t.dtype} on "
-                             f"{t.device} (contiguous={t.is_contiguous()})")
-    p, _, d = x.shape
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (P, N, D) f32 or "
+                         f"bf16 tensor; got {x.dtype} {tuple(x.shape)} "
+                         f"(contiguous={x.is_contiguous()})")
+    for t in (centroids, lmask, weights):
+        if t is not None and (t.device != x.device
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: centroids, lmask and weights must be "
+                             f"contiguous f32 tensors on {x.device}; got "
+                             f"{t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    p, n, d = x.shape
     if centroids.dim() != 3 or centroids.shape[0] != p \
-            or centroids.shape[2] != d or lmask.shape != centroids.shape[1:2]:
+            or centroids.shape[2] != d \
+            or (lmask is not None and lmask.shape != centroids.shape[1:2]) \
+            or (weights is not None and weights.shape != (p, n)):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, centroids "
                          f"{tuple(centroids.shape)}, lmask "
-                         f"{tuple(lmask.shape)} do not match")
+                         f"{None if lmask is None else tuple(lmask.shape)}, "
+                         f"weights "
+                         f"{None if weights is None else tuple(weights.shape)}"
+                         f" do not match")
     if d > MAX_D or centroids.shape[1] > MAX_L:
         raise ValueError(f"{name}: the kernel takes D <= {MAX_D} and "
                          f"L <= {MAX_L}; got D={d}, L={centroids.shape[1]}")
 
 
-def lloyd_update_kernel(x: torch.Tensor, weights: torch.Tensor,
-                        centroids: torch.Tensor, lmask: torch.Tensor):
-    """x (P, N, D), weights (P, N), centroids (P, L, D), lmask (L,).
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def lloyd_update_kernel(x: torch.Tensor, weights: Optional[torch.Tensor],
+                        centroids: torch.Tensor,
+                        lmask: Optional[torch.Tensor] = None):
+    """x (P, N, D) f32 or bf16, weights (P, N) or None (all 1), centroids
+    (P, L, D), lmask (L,) or None (all valid).
 
     Returns (dsums (P, L, D) f32, counts (P, L) f32)."""
     if x.device.type == "cpu":
@@ -64,20 +172,17 @@ def lloyd_update_kernel(x: torch.Tensor, weights: torch.Tensor,
     check_cuda_inputs("lloyd_update", x, centroids, lmask, weights)
     p, n, d = x.shape
     l = centroids.shape[1]
-    if weights.shape != (p, n):
-        raise ValueError(f"lloyd_update: weights {tuple(weights.shape)} "
-                         f"!= {(p, n)}")
+    lay = lloyd_layout(x, l)
     lib = _build.load("lloyd_update", "lloyd_update_launch", _ARGTYPES)
-    nblocks = -(-n // ROWS_PER_BLOCK)
-    partials = torch.empty((p, nblocks, l * (d + 1)), device=x.device,
+    partials = torch.empty((p, lay.blocks, l * (d + 1)), device=x.device,
                            dtype=torch.float32)
     dsums = torch.empty((p, l, d), device=x.device, dtype=torch.float32)
     counts = torch.empty((p, l), device=x.device, dtype=torch.float32)
     rc = lib.lloyd_update_launch(
-        x.data_ptr(), weights.data_ptr(), centroids.data_ptr(),
-        lmask.data_ptr(), partials.data_ptr(), dsums.data_ptr(),
-        counts.data_ptr(), p, n, l, d, ROWS_PER_BLOCK, nblocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), _ptr(weights), centroids.data_ptr(), _ptr(lmask),
+        partials.data_ptr(), dsums.data_ptr(), counts.data_ptr(), p, n, l,
+        d, int(lay.route == "d8"), int(x.dtype == torch.bfloat16), lay.rows,
+        lay.blocks, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lloyd_update: launch failed with CUDA error "
                            f"{rc}")
@@ -85,30 +190,67 @@ def lloyd_update_kernel(x: torch.Tensor, weights: torch.Tensor,
     return dsums, counts
 
 
-def lloyd_update_in_kernel_order(x: torch.Tensor, weights: torch.Tensor,
-                                 centroids: torch.Tensor, lmask: torch.Tensor,
-                                 rows_per_block: int = ROWS_PER_BLOCK):
-    """The plain version, summed in the kernel's order: each block of
-    ``rows_per_block`` rows adds its rows one at a time in row order, then a
-    problem's block partials are added in block order. For 0/1 weights
-    every term is exact, so in f32 this gives the kernel's dsums and counts
-    bit for bit, given the same codes."""
+def _terms(x, weights, centroids, lmask):
+    """Each row's contribution (..., N, L, D+1): w·(x − c_code) and w in
+    the row's code slot, exactly 0 elsewhere."""
     codes, _ = ref.kmeans_assign_ref(x, centroids, lmask)
     cf = centroids.float()
-    onehot = torch.nn.functional.one_hot(codes, cf.shape[-2]).float() \
-        * weights.float().unsqueeze(-1)                        # (P, N, L)
-    delta = x.float() - ref._gather_rows(cf, codes)            # (P, N, D)
-    terms = torch.cat([onehot.unsqueeze(-1) * delta.unsqueeze(-2),
-                       onehot.unsqueeze(-1)], -1)              # (P, N, L, D+1)
-    p, n = terms.shape[:2]
-    nblocks = -(-n // rows_per_block)
-    terms = torch.nn.functional.pad(
-        terms, (0, 0, 0, 0, 0, nblocks * rows_per_block - n)
-    ).reshape(p, nblocks, rows_per_block, *terms.shape[2:])
-    part = torch.zeros_like(terms[:, :, 0])
-    for r in range(rows_per_block):
-        part = part + terms[:, :, r]
+    w = torch.ones(codes.shape, device=x.device) if weights is None \
+        else weights.float()
+    onehot = torch.nn.functional.one_hot(codes, cf.shape[-2]).float()
+    delta = w.unsqueeze(-1) * (x.float() - ref._gather_rows(cf, codes))
+    row = torch.cat([delta, w.unsqueeze(-1)], -1)            # (.., N, D+1)
+    return onehot.unsqueeze(-1) * row.unsqueeze(-2)
+
+
+def lloyd_update_in_kernel_order(x: torch.Tensor,
+                                 weights: Optional[torch.Tensor],
+                                 centroids: torch.Tensor,
+                                 lmask: Optional[torch.Tensor],
+                                 layout: Layout):
+    """The plain version, summed in the order of a launch with ``layout``.
+
+    d8: block b takes tiles b, b + blocks, ... of ``rows`` rows, thread t
+    of its ``threads`` rows t, t + threads, ... of each tile, and adds them
+    in row order; the 32 lanes of a warp add by an xor tree (offsets 16,
+    8, 4, 2, 1); the warps' sums are added in warp order, and the blocks'
+    in block order. generic: each block of ``rows`` rows adds
+    its rows one at a time in row order, then the blocks in block order.
+    For 0/1 weights every term is exact, so in f32 this gives the kernel's
+    dsums and counts bit for bit, given the same codes."""
+    p, n, _ = x.shape
+    if layout.route == "generic":
+        terms = _terms(x, weights, centroids, lmask)          # (P, N, L, D+1)
+        nb = -(-n // layout.rows)
+        terms = torch.nn.functional.pad(
+            terms, (0, 0, 0, 0, 0, nb * layout.rows - n)
+        ).reshape(p, nb, layout.rows, *terms.shape[2:])
+        part = torch.zeros_like(terms[:, :, 0])
+        for r in range(layout.rows):
+            part = part + terms[:, :, r]
+    else:
+        t, nb = layout.threads, layout.blocks
+        per = layout.rows // t              # rows of a thread in a tile
+        g = layout.rows * nb                # rows one sweep of the grid takes
+        lane = torch.arange(32, device=x.device)
+        acc = None
+        for j0 in range(0, max(n, 1), g):
+            j1 = min(j0 + g, n)
+            w = None if weights is None else weights[:, j0:j1]
+            terms = _terms(x[:, j0:j1], w, centroids, lmask)
+            terms = torch.nn.functional.pad(
+                terms, (0, 0, 0, 0, 0, g - (j1 - j0))
+            ).reshape(p, nb, per, t, *terms.shape[2:])
+            for r in range(per):
+                acc = terms[:, :, r] if acc is None else acc + terms[:, :, r]
+        acc = acc.reshape(p, nb, t // 32, 32, *acc.shape[3:])
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, :, :, lane ^ off]
+        warps = acc[:, :, :, 0]                               # (P, nb, W, ..)
+        part = warps[:, :, 0]
+        for wi in range(1, t // 32):
+            part = part + warps[:, :, wi]
     total = torch.zeros_like(part[:, 0])
-    for b in range(nblocks):
+    for b in range(part.shape[1]):
         total = total + part[:, b]
     return total[..., :-1], total[..., -1]

@@ -1,11 +1,14 @@
 """Public wrappers around the kernels (twin of ``repro/kernels/ops.py``).
 
 The k-means wrappers (``kmeans_assign``, ``pq_quantize``,
-``lloyd_update``) take any L and pad the codebook to a multiple of 8
-centroids, masked by ``lmask`` so that a padded centroid never wins (it
-scores ``NEG``), as the reference's ``_pad_centroids`` does. Rows need no padding: the CUDA
-kernels mask their ragged last tile themselves, and rows that the caller
-pads (``core.kmeans.lloyd`` pads to a chunk multiple) carry weight 0.
+``lloyd_update``) take any L and hand the codebook to the kernels as it
+is, with no mask: unlike the reference's ``_pad_centroids``, the kernels
+need no padded codebook (``_pad_centroids`` stays for callers that build
+a masked one to test the kernels' mask). Rows need no padding either: the
+CUDA kernels mask their ragged last tile themselves, and ``lloyd_update``
+without weights reads none. ``pq_quantize`` and ``lloyd_update`` read x in
+f32 or bf16 as it comes (on the card, other float dtypes are upcast to
+f32 first).
 
 Every input has a leading problem axis P (clients x codebook groups for
 k-means, clients for scalar quantization and packing): the reference
@@ -40,39 +43,42 @@ def _pad_centroids(c: torch.Tensor, lane: int = 8):
     return cp.contiguous(), lmask
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as the streaming kernels read it: f32 or bf16, contiguous (the
+    plain versions on the CPU take any float dtype)."""
+    if x.is_cuda and x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    return x.contiguous()
+
+
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     """Nearest centroid and squared distance of every row.
 
     x (P, N, D) f32; centroids (P, L, D). Returns (codes (P, N) int32,
     sqdist (P, N) f32 = max(‖x‖² − best score, 0))."""
-    cp, lmask = _pad_centroids(centroids)
-    return kmeans_assign_kernel(x.float().contiguous(), cp, lmask)
+    return kmeans_assign_kernel(x.float().contiguous(),
+                                centroids.float().contiguous())
 
 
 def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
     """Fused assign + dequantize + residual.
 
-    x (P, N, D) f32; centroids (P, L, D). Returns (z̃ (P, N, D) x.dtype,
-    residual (P, N, D) f32, codes (P, N) int32)."""
-    cp, lmask = _pad_centroids(centroids)
-    return pq_quantize_kernel(x.contiguous(), cp, lmask)
+    x (P, N, D) f32 or bf16; centroids (P, L, D). Returns (z̃ (P, N, D)
+    x.dtype, residual (P, N, D) f32, codes (P, N) int32)."""
+    return pq_quantize_kernel(_rows(x), centroids.float().contiguous())
 
 
 def lloyd_update(x: torch.Tensor, centroids: torch.Tensor,
                  weights: Optional[torch.Tensor] = None):
     """One Lloyd iteration's statistics in one sweep over x.
 
-    x (P, N, D) f32; centroids (P, L, D); weights (P, N) (padding rows
-    carry 0; None = all 1). Returns (dsums (P, L, D) f32 = Σ onehot·(x −
-    c_old), counts (P, L) f32)."""
-    l = centroids.shape[1]
-    if weights is None:
-        weights = torch.ones(x.shape[:2], device=x.device)
-    cp, lmask = _pad_centroids(centroids)
-    dsums, counts = lloyd_update_kernel(x.contiguous(),
-                                        weights.float().contiguous(), cp,
-                                        lmask)
-    return dsums[:, :l], counts[:, :l]
+    x (P, N, D) f32 or bf16; centroids (P, L, D); weights (P, N) (padding
+    rows carry 0; None = all 1, and no weights are read). Returns (dsums
+    (P, L, D) f32 = Σ onehot·(x − c_old), counts (P, L) f32)."""
+    if weights is not None:
+        weights = weights.float().contiguous()
+    return lloyd_update_kernel(_rows(x), weights,
+                               centroids.float().contiguous())
 
 
 def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,

@@ -4,7 +4,8 @@ The CPU tests run these, the ``"torch"`` backends run them on any device,
 and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 They carry a leading problem axis: ``x`` is ``(..., N, D)``,
 ``centroids`` ``(..., L, D)``, ``weights`` ``(..., N)``; ``lmask`` is one
-``(L,)`` mask shared by every problem (1.0 = valid centroid). The scalar
+``(L,)`` mask shared by every problem (1.0 = valid centroid; None = every
+centroid valid), and ``weights`` may be None (every weight 1). The scalar
 quantizer and the packers take ``(P, N)`` values or codes, one range or
 one stream of words per problem. Flash attention takes the kernel's
 ``(B·H, S, hd)`` layout.
@@ -18,6 +19,8 @@ never win, and ties going to the first index, as ``jnp.argmax`` and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -30,33 +33,39 @@ def _gather_rows(c: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch.gather(c, -2, idx)
 
 
-def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor,
-                      lmask: torch.Tensor):
-    """codes (..., N) int64 + clamped squared distances (..., N) f32."""
-    xf = x.float()
+def _scores(xf: torch.Tensor, centroids: torch.Tensor,
+            lmask: Optional[torch.Tensor]) -> torch.Tensor:
+    """2·x·c_l − ‖c_l‖² (..., N, L), masked centroids scored NEG."""
     cf = centroids.float()
     scores = 2.0 * (xf @ cf.transpose(-1, -2)) \
         - (cf * cf).sum(-1).unsqueeze(-2)
-    scores = torch.where(lmask.to(scores.device) > 0, scores, NEG)
+    if lmask is None:
+        return scores
+    return torch.where(lmask.to(scores.device) > 0, scores, NEG)
+
+
+def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor,
+                      lmask: Optional[torch.Tensor] = None):
+    """codes (..., N) int64 + clamped squared distances (..., N) f32."""
+    xf = x.float()
+    scores = _scores(xf, centroids, lmask)
     codes = scores.argmax(-1)
     best = scores.amax(-1)
     return codes, ((xf * xf).sum(-1) - best).clamp_min(0.0)
 
 
-def near_ties(x: torch.Tensor, centroids: torch.Tensor, lmask: torch.Tensor,
+def near_ties(x: torch.Tensor, centroids: torch.Tensor,
+              lmask: Optional[torch.Tensor] = None,
               rtol: float = 1e-5) -> torch.Tensor:
     """Rows (..., N) whose best two scores differ by <= rtol·(1 + |best|):
     there a kernel's FMA order may pick either code."""
-    cf = centroids.float()
-    scores = 2.0 * (x.float() @ cf.transpose(-1, -2)) \
-        - (cf * cf).sum(-1).unsqueeze(-2)
-    scores = torch.where(lmask.to(scores.device) > 0, scores, NEG)
+    scores = _scores(x.float(), centroids, lmask)
     top = scores.topk(2, dim=-1).values
     return (top[..., 0] - top[..., 1]) <= rtol * (1 + top[..., 0].abs())
 
 
 def pq_quantize_ref(x: torch.Tensor, centroids: torch.Tensor,
-                    lmask: torch.Tensor):
+                    lmask: Optional[torch.Tensor] = None):
     """(z̃ in x.dtype, residual x − z̃ in f32, codes int32)."""
     codes, _ = kmeans_assign_ref(x, centroids, lmask)
     zt = _gather_rows(centroids.float(), codes)
@@ -112,14 +121,16 @@ def unpack_codes_ref(words: torch.Tensor, count: int,
     return codes.reshape(p, -1)[:, :count].to(torch.int32)
 
 
-def lloyd_update_ref(x: torch.Tensor, weights: torch.Tensor,
-                     centroids: torch.Tensor, lmask: torch.Tensor):
+def lloyd_update_ref(x: torch.Tensor, weights: Optional[torch.Tensor],
+                     centroids: torch.Tensor,
+                     lmask: Optional[torch.Tensor] = None):
     """One Lloyd iteration's statistics, deviation-accumulated:
     dsums[l] = Σ_i w_i·1[codes_i = l]·(x_i − c_l), counts[l] = Σ_i w_i·1[..]."""
     codes, _ = kmeans_assign_ref(x, centroids, lmask)
     cf = centroids.float()
-    onehot = F.one_hot(codes, cf.shape[-2]).float() \
-        * weights.float().unsqueeze(-1)
+    onehot = F.one_hot(codes, cf.shape[-2]).float()
+    if weights is not None:
+        onehot = onehot * weights.float().unsqueeze(-1)
     delta = x.float() - _gather_rows(cf, codes)   # exact 0 on exact cover
     return onehot.transpose(-1, -2) @ delta, onehot.sum(-2)
 

@@ -14,7 +14,11 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_route
-from repro_torch.kernels.lloyd_update import lloyd_update_in_kernel_order
+from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
+from repro_torch.kernels.lloyd_update import (lloyd_layout,
+                                              lloyd_update_in_kernel_order,
+                                              lloyd_update_kernel, row_route)
+from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 
 
 def _cuda_or_skip():
@@ -30,58 +34,191 @@ def _inputs(seed, dev, p, n, d, l):
     return x.to(dev), c.to(dev)
 
 
+# (route, D, L, masked): the kernel gets L centroids; masked pads a codebook
+# of L to 8 with a mask, as a caller that masks centroids would
+LLOYD_CASES = [("d8", 8, 8, True), ("d8", 8, 16, False), ("d8", 8, 2, False),
+               ("generic", 8, 3, False), ("generic", 16, 5, True)]
+
+
+def _codebook(c, masked):
+    return ops._pad_centroids(c) if masked else (c, None)
+
+
 @pytest.mark.gpu
-def test_lloyd_update_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,d,l,masked", LLOYD_CASES)
+def test_lloyd_update_kernel_matches_plain_on_card(route, d, l, masked,
+                                                   dtype):
     """Counts exact; deviation sums bitwise those of the plain version in
-    the kernel's order and within f32 reordering of the plain order;
-    bitwise run to run; a ragged N and a masked codebook (L=3 padded to
-    8). Near-tie rows, where either code is right, weigh 0."""
+    the route's order and within f32 reordering of the plain order;
+    bitwise run to run; a bf16 x bitwise its f32 upcast; a ragged N.
+    Near-tie rows, where either code is right, weigh 0."""
     dev = _cuda_or_skip()
-    x, c = _inputs(21, dev, 4, 3000, 8, 3)
-    cp, lmask = ops._pad_centroids(c)
+    x, c = _inputs(21, dev, 4, 3000, d, l)
+    x = x.to(dtype)
+    cp, lmask = _codebook(c, masked)
+    lay = lloyd_layout(x, cp.shape[1])
+    assert lay.route == route
     w = (torch.arange(3000, device=dev) < 2900).float().expand(4, -1)
     w = torch.where(ref.near_ties(x, cp, lmask), 0.0, w).contiguous()
-    ds, cnt = ops.lloyd_update(x, c, w)
-    ds2, cnt2 = ops.lloyd_update(x, c, w)
-    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, cp, lmask)
+    ds, cnt = lloyd_update_kernel(x, w, cp, lmask)
+    ds2, cnt2 = lloyd_update_kernel(x, w, cp, lmask)
+    ds_f, cnt_f = lloyd_update_kernel(x.float(), w, cp, lmask)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, cp, lmask, lay)
     ds_r, cnt_r = ref.lloyd_update_ref(x, w, cp, lmask)
     assert torch.equal(ds, ds2) and torch.equal(cnt, cnt2)
-    assert torch.equal(cnt, cnt_r[:, :3]) and torch.equal(cnt, cnt_o[:, :3])
-    assert torch.equal(ds, ds_o[:, :3])
-    assert float(((ds - ds_r[:, :3]).abs()
-                  / (1 + ds_r[:, :3].abs())).max()) <= 2e-5
+    assert torch.equal(ds, ds_f) and torch.equal(cnt, cnt_f)
+    assert torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_o)
+    assert torch.equal(ds, ds_o)
+    # against the exact sum: within the f32 rounding bound γ·Σ|terms| of
+    # the launch's chains of additions (d8: a thread's rows, the 5-level
+    # xor tree, the warps, the blocks; generic: a block's rows, the blocks)
+    codes, _ = ref.kmeans_assign_ref(x, cp, lmask)
+    delta = (x.double() - ref._gather_rows(cp.double(), codes))
+    oh = torch.nn.functional.one_hot(codes, cp.shape[1]).double() \
+        * w.double().unsqueeze(-1)
+    ds64 = oh.transpose(-1, -2) @ delta
+    mag = oh.transpose(-1, -2) @ delta.abs()
+    if lay.route == "d8":
+        depth = -(-3000 // (lay.rows * lay.blocks)) \
+            * (lay.rows // lay.threads) + 5 + lay.threads // 32 + lay.blocks
+    else:
+        depth = lay.rows + lay.blocks
+    gamma = depth * 2.0 ** -24 / (1 - depth * 2.0 ** -24)
+    assert bool(((ds.double() - ds64).abs() <= gamma * mag).all())
+    # against the plain (matmul) order, for f32 rows: on bf16-valued rows
+    # that order strays from the exact sum by more than 2e-5 (its roundings
+    # no longer cancel), so a bf16 x is held to the exact sum above and,
+    # bitwise, to its f32 upcast
+    if dtype == torch.float32:
+        assert float(((ds - ds_r).abs() / (1 + ds_r.abs())).max()) <= 2e-5
 
 
 @pytest.mark.gpu
-def test_pq_quantize_kernel_matches_plain_on_card():
-    """Codes equal but for near-ties; z̃ and the residual bitwise equal
-    wherever the codes agree (L=16, ragged N)."""
+@pytest.mark.parametrize("route,d,l,masked", LLOYD_CASES)
+def test_lloyd_update_unweighted_is_all_ones_on_card(route, d, l, masked):
+    """No weights (none read) gives bitwise the sums of all-ones weights."""
     dev = _cuda_or_skip()
-    x, c = _inputs(22, dev, 4, 3001, 8, 16)
-    zt, resid, codes = ops.pq_quantize(x, c)
-    zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, c,
-                                                 torch.ones(16, device=dev))
+    x, c = _inputs(25, dev, 3, 2049, d, l)
+    cp, lmask = _codebook(c, masked)
+    ds, cnt = lloyd_update_kernel(x, None, cp, lmask)
+    ds1, cnt1 = lloyd_update_kernel(x, torch.ones(3, 2049, device=dev), cp,
+                                    lmask)
+    assert torch.equal(ds, ds1) and torch.equal(cnt, cnt1)
+    assert float(cnt.sum()) == 3 * 2049
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,d,l,masked", LLOYD_CASES)
+def test_pq_quantize_kernel_matches_plain_on_card(route, d, l, masked,
+                                                  dtype):
+    """Codes equal but for near-ties; z̃ (in x's dtype) and the residual
+    bitwise equal wherever the codes agree; a bf16 x gives its f32
+    upcast's codes and residual, and z̃ rounded to bf16 (ragged N)."""
+    dev = _cuda_or_skip()
+    x, c = _inputs(22, dev, 4, 3001, d, l)
+    x = x.to(dtype)
+    cp, lmask = _codebook(c, masked)
+    assert row_route(x, cp.shape[1]) == route
+    zt, resid, codes = pq_quantize_kernel(x, cp, lmask)
+    zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, cp, lmask)
+    assert zt.dtype == dtype and resid.dtype == torch.float32
     same = codes == codes_r
-    ties = ref.near_ties(x, c, torch.ones(16, device=dev))
+    ties = ref.near_ties(x, cp, lmask)
     assert not bool((~same & ~ties).any())
     assert torch.equal(zt[same], zt_r[same])
     assert torch.equal(resid[same], resid_r[same])
+    zt_f, resid_f, codes_f = pq_quantize_kernel(x.float(), cp, lmask)
+    assert torch.equal(codes, codes_f) and torch.equal(resid, resid_f)
+    assert torch.equal(zt, zt_f.to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [2, 3, 16])
+def test_three_kernels_pick_the_same_codes_on_card(l):
+    """kmeans_assign, pq_quantize and lloyd_update give every row the same
+    code, near-ties included (rows placed midway between two centroids):
+    lloyd_update's code of a row is read from the counts of a problem of
+    that one row."""
+    dev = _cuda_or_skip()
+    x, c = _inputs(26, dev, 1, 2000, 8, l)
+    r = np.random.default_rng(27)
+    a, b = r.integers(0, l, 2000), r.integers(0, l, 2000)
+    mid = (c[0, a] + c[0, b]) / 2
+    x[0, 1000:] = mid[1000:] + 1e-7 * x[0, 1000:]
+    codes_a, _ = ops.kmeans_assign(x, c)
+    _, _, codes_q = ops.pq_quantize(x, c)
+    rows = x[0].reshape(2000, 1, 8).contiguous()
+    _, cnt = ops.lloyd_update(rows, c.expand(2000, -1, -1).contiguous())
+    assert torch.equal(cnt.sum(-1), torch.ones(2000, device=dev))
+    codes_l = cnt.argmax(-1).to(torch.int32)
+    assert torch.equal(codes_a[0], codes_q[0])
+    assert torch.equal(codes_a[0], codes_l)
+
+
+@pytest.mark.gpu
+def test_misaligned_x_goes_generic_on_card():
+    """A contiguous view 4 bytes off a 16-byte boundary takes the generic
+    route (a kernel, never the plain version): lloyd_update bitwise its
+    generic order, pq_quantize bitwise the aligned copy's d8 result."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    x, c = _inputs(28, dev, 2, 1500, 8, 4)
+    buf = torch.empty(x.numel() + 1, device=dev)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    assert row_route(view, 4) == "generic" and row_route(x, 4) == "d8"
+    w = torch.where(ref.near_ties(x, c), 0.0, 1.0).contiguous()
+    _build.reset_launch_counts()
+    ds, cnt = lloyd_update_kernel(view, w, c)
+    out = pq_quantize_kernel(view, c)
+    assert _build.launch_counts() == {"lloyd_update": 1, "pq_quantize": 1}
+    lay = lloyd_layout(view, 4)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(view, w, c, None, lay)
+    assert lay.route == "generic"
+    assert torch.equal(ds, ds_o) and torch.equal(cnt, cnt_o)
+    for a, b in zip(out, pq_quantize_kernel(x, c)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [4, 3])
+def test_fixed_points_exact_on_card(l):
+    """Exact cover: dsums and the residual exactly 0, z̃ the rows; a far
+    centroid is an empty cluster: count 0, dsums 0 (d8 at L = 4, generic
+    at L = 3)."""
+    dev = _cuda_or_skip()
+    _, c = _inputs(29, dev, 4, 1, 8, l)
+    c[:, -1] = 1e3
+    pick = torch.from_numpy(np.random.default_rng(30).integers(
+        0, l - 1, (4, 2000))).to(dev)
+    x = torch.gather(c, 1, pick.unsqueeze(-1).expand(-1, -1, 8)).contiguous()
+    ds, cnt = ops.lloyd_update(x, c)
+    zt, resid, codes = ops.pq_quantize(x, c)
+    assert float(ds.abs().max()) == 0.0 and float(resid.abs().max()) == 0.0
+    assert torch.equal(zt, x) and torch.equal(codes.long(), pick)
+    assert float(cnt[:, -1].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
 def test_kmeans_assign_kernel_matches_plain_on_card():
     """Codes equal but for near-ties; squared distances within
-    1e-5·(1 + ‖x‖²) (ragged N, L=3 masked in a codebook padded to 8)."""
+    1e-5·(1 + ‖x‖²) (ragged N, L=3 unmasked, and masked in a codebook
+    padded to 8)."""
     dev = _cuda_or_skip()
     x, c = _inputs(23, dev, 4, 3001, 8, 3)
-    codes, sq = ops.kmeans_assign(x, c)
     cp, lmask = ops._pad_centroids(c)
-    codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
-    ties = ref.near_ties(x, cp, lmask)
-    assert codes.dtype == torch.int32 and int(codes.max()) <= 2
-    assert not bool(((codes != codes_r) & ~ties).any())
-    tol = 1e-5 * (1 + x.square().sum(-1))
-    assert bool(((sq - sq_r).abs() <= tol).all())
+    for codes, sq in (ops.kmeans_assign(x, c),
+                      kmeans_assign_kernel(x, cp, lmask)):
+        codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
+        ties = ref.near_ties(x, cp, lmask)
+        assert codes.dtype == torch.int32 and int(codes.max()) <= 2
+        assert not bool(((codes != codes_r) & ~ties).any())
+        tol = 1e-5 * (1 + x.square().sum(-1))
+        assert bool(((sq - sq_r).abs() <= tol).all())
 
 
 @pytest.mark.gpu

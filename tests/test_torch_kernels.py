@@ -34,8 +34,9 @@ from repro_torch.kernels.flash_attention import (flash_attention_bshd,
                                                  flash_route)
 from repro_torch.models import attention as tattn
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
-from repro_torch.kernels.lloyd_update import (lloyd_update_in_kernel_order,
-                                              lloyd_update_kernel)
+from repro_torch.kernels.lloyd_update import (Layout, d8_blocks,
+                                              lloyd_update_in_kernel_order,
+                                              lloyd_update_kernel, row_route)
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
@@ -110,15 +111,22 @@ def test_lloyd_update_zero_weight_rows_contribute_nothing():
     np.testing.assert_array_equal(ct[0].numpy(), np.asarray(ct_r))
 
 
-@pytest.mark.parametrize("n,rows_per_block", [(300, 64), (64, 1024)])
-def test_lloyd_update_in_kernel_order_matches_jax_ref(n, rows_per_block):
-    """The plain version in the kernel's summation order: counts exact,
-    dsums to f32 reordering of the JAX oracle, padding rows add nothing."""
+@pytest.mark.parametrize("n,route,rows,blocks,threads", [
+    (300, "d8", 64, 2, 32),        # three sweeps of the grid, a ragged one
+    (64, "generic", 1024, 1, 0),   # one block larger than the problem
+    (1037, "d8", 256, 3, 128),     # the kernel's tile, 2 rows a thread
+    (300, "generic", 256, 2, 0),
+])
+def test_lloyd_update_in_kernel_order_matches_jax_ref(n, route, rows,
+                                                      blocks, threads):
+    """The plain version in a kernel route's summation order: counts
+    exact, dsums to f32 reordering of the JAX oracle, padding rows add
+    nothing."""
     x, c = _inputs(n + 2, 2, n, 8, 3)
     cp, lmask = tops._pad_centroids(_t(c))
     w = (torch.arange(n) < n - 7).float().expand(2, -1)
-    ds, ct = lloyd_update_in_kernel_order(_t(x), w, cp, lmask,
-                                          rows_per_block)
+    ds, ct = lloyd_update_in_kernel_order(
+        _t(x), w, cp, lmask, Layout(route, rows, blocks, threads))
     for p in range(2):
         ds_r, ct_r = jref.lloyd_update_ref(
             jnp.asarray(x[p]), jnp.asarray(w[p].numpy()),
@@ -126,6 +134,165 @@ def test_lloyd_update_in_kernel_order_matches_jax_ref(n, rows_per_block):
         np.testing.assert_array_equal(ct[p].numpy(), np.asarray(ct_r))
         np.testing.assert_allclose(ds[p].numpy(), np.asarray(ds_r),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _d8_order_by_hand(x, c, rows, blocks, threads):
+    """The d8 route's sums written out one f32 addition at a time (numpy
+    scalars), as csrc/lloyd_update.cu's lloyd_d8 and lloyd_reduce add
+    them: block b takes tiles b, b + blocks, ... of ``rows`` rows, thread
+    t rows t, t + threads, ... of each tile, in row order; then the lanes
+    by an xor tree, the warps in warp order, the blocks in block order."""
+    f32 = np.float32
+    p, n, d = x.shape
+    l = c.shape[1]
+    scores = 2 * np.einsum("pnd,pld->pnl", x.astype(np.float64),
+                           c.astype(np.float64)) - (c.astype(np.float64)
+                                                    ** 2).sum(-1)[:, None]
+    codes = scores.argmax(-1)
+    out = np.zeros((p, l, d + 1), f32)
+    g = rows * blocks
+    for q in range(p):
+        total = np.zeros((l, d + 1), f32)
+        for b in range(blocks):
+            lanes = np.zeros((threads, l, d + 1), f32)
+            for t in range(threads):
+                for tile in range(b * rows, n, g):
+                    for i in range(tile + t, min(tile + rows, n), threads):
+                        k = codes[q, i]
+                        lanes[t, k, :d] = lanes[t, k, :d] \
+                            + (x[q, i] - c[q, k])
+                        lanes[t, k, d] = lanes[t, k, d] + f32(1)
+            warps = lanes.reshape(threads // 32, 32, l, d + 1)
+            for off in (16, 8, 4, 2, 1):
+                warps = warps + warps[:, np.arange(32) ^ off]
+            part = warps[0, 0]
+            for wi in range(1, threads // 32):
+                part = part + warps[wi, 0]
+            total = total + part
+        out[q] = total
+    return out[..., :d], out[..., d]
+
+
+def test_lloyd_update_in_kernel_order_is_the_d8_order_by_hand():
+    """The vectorised d8 order is bitwise the additions written out one by
+    one; unweighted is bitwise all-ones weights."""
+    x, c = _inputs(17, 2, 333, 8, 4)
+    ds_h, ct_h = _d8_order_by_hand(x, c, 128, 2, 64)
+    lay = Layout("d8", 128, 2, 64)
+    ds, ct = lloyd_update_in_kernel_order(_t(x), None, _t(c), None, lay)
+    ds1, ct1 = lloyd_update_in_kernel_order(_t(x), torch.ones(2, 333),
+                                            _t(c), torch.ones(4), lay)
+    np.testing.assert_array_equal(ds.numpy(), ds_h)
+    np.testing.assert_array_equal(ct.numpy(), ct_h)
+    assert torch.equal(ds, ds1) and torch.equal(ct, ct1)
+
+
+def test_lloyd_update_unweighted_is_all_ones_weights():
+    x, c = _inputs(19, 3, 257, 8, 5)
+    ds, ct = tops.lloyd_update(_t(x), _t(c))
+    ds1, ct1 = tops.lloyd_update(_t(x), _t(c), torch.ones(3, 257))
+    assert torch.equal(ds, ds1) and torch.equal(ct, ct1)
+    ds_k, ct_k = lloyd_update_kernel(_t(x), None, _t(c))
+    assert torch.equal(ds, ds_k) and torch.equal(ct, ct_k)
+
+
+def _bf16_inputs(seed, p, n, d, l):
+    """x rounded to bf16 (torch and jax both round to nearest even) and its
+    exact f32 upcast, with f32 centroids."""
+    x, c = _inputs(seed, p, n, d, l)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    return xb, xb.float().numpy(), c
+
+
+@pytest.mark.parametrize("n,l", [(200, 2), (513, 16)])
+def test_lloyd_update_bf16_matches_jax(n, l):
+    """The plain version on a bf16 x against the Pallas kernel (interpret
+    mode) on the same bf16 values: counts exact, dsums to f32 rounding;
+    and bitwise the plain version on the f32 upcast."""
+    xb, xf, c = _bf16_inputs(n + l, 2, n, 8, l)
+    ds, ct = tops.lloyd_update(xb, _t(c))
+    ds_f, ct_f = tops.lloyd_update(_t(xf), _t(c))
+    assert torch.equal(ds, ds_f) and torch.equal(ct, ct_f)
+    for p in range(2):
+        xj = jnp.asarray(xf[p]).astype(jnp.bfloat16)
+        ds_k, ct_k = jops.lloyd_update(xj, jnp.asarray(c[p]), block_n=64,
+                                       interpret=True)
+        np.testing.assert_array_equal(ct[p].numpy(), np.asarray(ct_k))
+        np.testing.assert_allclose(ds[p].numpy(), np.asarray(ds_k),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,l", [(200, 2), (513, 16)])
+def test_pq_quantize_bf16_matches_jax(n, l):
+    """The plain version on a bf16 x against the Pallas kernel (interpret
+    mode): codes equal, z̃ in bf16 equal, the f32 residual equal; z̃ is the
+    f32 encode's z̃ rounded to bf16, the residual that encode's residual."""
+    xb, xf, c = _bf16_inputs(n + 2 * l, 2, n, 8, l)
+    zt, resid, codes = tops.pq_quantize(xb, _t(c))
+    zt_f, resid_f, codes_f = tops.pq_quantize(_t(xf), _t(c))
+    assert zt.dtype == torch.bfloat16 and resid.dtype == torch.float32
+    assert torch.equal(codes, codes_f)
+    assert torch.equal(zt, zt_f.to(torch.bfloat16))
+    assert torch.equal(resid, resid_f)
+    for p in range(2):
+        xj = jnp.asarray(xf[p]).astype(jnp.bfloat16)
+        zt_k, resid_k, codes_k = jops.pq_quantize(xj, jnp.asarray(c[p]),
+                                                  block_n=64, interpret=True)
+        assert zt_k.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(codes[p].numpy(), np.asarray(codes_k))
+        np.testing.assert_array_equal(
+            zt[p].float().numpy(), np.asarray(zt_k.astype(jnp.float32)))
+        np.testing.assert_allclose(resid[p].numpy(), np.asarray(resid_k),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_row_route_and_d8_grid():
+    """d8 for rows of 8, L in D8_L and a 16-byte-aligned x; generic for
+    another D or L and for a misaligned view."""
+    x = torch.zeros(2, 64, 8)
+    assert [row_route(x, l) for l in (2, 4, 8, 16)] == ["d8"] * 4
+    assert row_route(x, 3) == "generic" and row_route(x, 32) == "generic"
+    assert row_route(torch.zeros(2, 64, 16), 4) == "generic"
+    view = torch.zeros(2 * 64 * 8 + 1)[1:].view(2, 64, 8)
+    assert view.is_contiguous() and row_route(view, 4) == "generic"
+    # the card's resident blocks shared among the problems, no fewer than
+    # min_tiles tiles a block where the problem has them, at least one
+    assert d8_blocks(4, 1 << 20, 132, 2, 512, 2) == 66
+    assert d8_blocks(10, 23040, 132, 4, 512, 2) == 23   # 45 tiles, 2 a block
+    assert d8_blocks(10, 23040, 132, 7, 256, 8) == 12   # 90 tiles, 8 a block
+    assert d8_blocks(10, 300, 132, 4, 256, 2) == 1      # 2 tiles
+    assert d8_blocks(200, 5000, 132, 1, 512, 2) == 1
+    assert d8_blocks(1, 0, 132, 4, 512, 2) == 1
+
+
+def test_ops_pass_the_codebook_unpadded_and_no_weights(monkeypatch):
+    """The k-means wrappers hand the kernels the codebook as it is, with no
+    mask, and lloyd_update no weights unless given; x keeps its dtype."""
+    seen = {}
+
+    def record(name, result):
+        def fn(*args):
+            seen[name] = args
+            return result(*args)
+        return fn
+
+    monkeypatch.setattr(tops, "lloyd_update_kernel",
+                        record("lloyd", lloyd_update_kernel))
+    monkeypatch.setattr(tops, "pq_quantize_kernel",
+                        record("pq", pq_quantize_kernel))
+    monkeypatch.setattr(tops, "kmeans_assign_kernel",
+                        record("assign", kmeans_assign_kernel))
+    x, c = _inputs(23, 2, 50, 8, 3)
+    xb = _t(x).to(torch.bfloat16)
+    tops.lloyd_update(xb, _t(c))
+    tops.pq_quantize(xb, _t(c))
+    tops.kmeans_assign(_t(x), _t(c))
+    xa, wa, ca, *rest = seen["lloyd"]
+    assert xa.dtype == torch.bfloat16 and wa is None and rest == []
+    assert ca.shape == (2, 3, 8)
+    xa, ca = seen["pq"]
+    assert xa.dtype == torch.bfloat16 and ca.shape == (2, 3, 8)
+    assert seen["assign"][1].shape == (2, 3, 8) and len(seen["assign"]) == 2
 
 
 def test_near_ties_flags_equal_scores_only():

@@ -155,6 +155,26 @@ def test_cuda_backend_raises_on_cpu_tensors():
         tkm.batched_kmeans(z.reshape(1, -1, 8), 2, 1, backend="cuda")
 
 
+def test_cuda_backend_lloyd_pads_nothing_and_builds_no_weights(monkeypatch):
+    """On "cuda" every Lloyd update gets x as it came (its rows and dtype,
+    no chunk padding) and no weights; on "torch" the rows are padded to the
+    chunk and carry 0/1 weights. The centroids agree to f32 rounding."""
+    seen = []
+    cuda = tkm._REGISTRY["cuda"]
+
+    def update(x, weights, cents):
+        seen.append((tuple(x.shape), x.dtype, weights))
+        return tkm._update_torch(x, weights, cents)
+
+    monkeypatch.setitem(tkm._REGISTRY, "cuda", cuda._replace(update=update))
+    x = torch.from_numpy(_acts(8, 3, 700, 8)).to(torch.bfloat16)
+    cents = tkm.batched_lloyd(x, 4, 3, chunk=256, backend="cuda")
+    assert seen == [((3, 700, 8), torch.bfloat16, None)] * 3
+    ref = tkm.batched_lloyd(x, 4, 3, chunk=256, backend="torch")
+    assert cents.dtype == torch.float32
+    np.testing.assert_allclose(cents.numpy(), ref.numpy(), **TOL)
+
+
 # ---------------------------------------------------------------------------
 # quantize
 # ---------------------------------------------------------------------------
@@ -253,6 +273,24 @@ def test_groups_layout_matches_jax_row_for_row():
                                       np.asarray(ref))
     back = tq._from_groups(g, 2, 5, 12, cfg_t)
     np.testing.assert_array_equal(back.numpy(), z)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_quantize_bf16_cut_is_its_f32_upcast(warm):
+    """A bf16 cut is grouped in bf16 and upcast where f32 is needed: codes,
+    codebooks and distortion equal those of its f32 upcast, z̃ and the
+    residual equal after the cast to bf16."""
+    zb = torch.from_numpy(_acts(12, 2, 30, 64)).to(torch.bfloat16)
+    cfg = tq.PQConfig(8, 4, num_groups=2, kmeans_iters=4)
+    state = tq.quantize_stateful(zb.float(), cfg)[1] if warm else None
+    qb = tq.quantize(zb, cfg, state=state)
+    qf = tq.quantize(zb.float(), cfg, state=state)
+    assert qb.dequantized.dtype == torch.bfloat16
+    assert torch.equal(qb.codes, qf.codes)
+    assert torch.equal(qb.codebooks, qf.codebooks.to(torch.bfloat16))
+    assert torch.equal(qb.distortion, qf.distortion)
+    assert torch.equal(qb.dequantized, qf.dequantized.to(torch.bfloat16))
+    assert torch.equal(qb.residual, qf.residual.to(torch.bfloat16))
 
 
 def test_exact_cover_gives_an_exactly_zero_residual():
