@@ -11,7 +11,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                 in parallel, and prints what ptxas reports;
   3. parity  -- each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes and at edge shapes (ragged N, a
-                masked L = 3, every packing width; for flash attention
+                masked L = 3, every packing width), every route of every
+                kernel in f32 and bf16 (kmeans_assign d8 and generic,
+                bitwise each other where both apply and bitwise the f32
+                upcast, its codes those of pq_quantize and lloyd_update
+                near-ties included; scalar_quantize vec and scalar, a
+                zero range, half-levels; for flash attention
                 both routes (tensor_core for bf16 at hd a multiple of 16,
                 cuda_core otherwise), ragged S, MHA, hd = 16 / 64, S below
                 a tile, a window, a causality probe per route, and the
@@ -24,6 +29,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   5. kmeans  -- batched_kmeans at the FEMNIST grouping (10 problems of
                 23040 x 8, L = 2, 5 iterations) on "auto" (the kernels) and
                 "torch" (plain), launch counts read around the "auto" run;
+                then on a bf16 x the size of the serve cut (4 x 1048576 x
+                8, L = 16, 4 iterations): launch counts, no f32 copy (peak
+                allocation), bitwise the call on the f32 upcast, times;
   6. slice 2 -- the same step with the compressed downlink
                 "chain:topk(k=0.1)+scalarq(bits=8)" and a CutState carried
                 from step to step (step 1 cold, 5 Lloyd iterations; later
@@ -46,7 +54,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                 bound and, where one PyTorch call computes the same
                 function, that call's time (flash attention through both
                 entries); lloyd_update and pq_quantize also at the serve
-                cut's shape; and the step times.
+                cut's shape; kmeans_assign and scalar_quantize at their
+                users' shapes (up to the serve cut and a Llama-3 8B cut's
+                gradient, f32 and bf16) with the floor of a one-element
+                call and the time of the call as it was before the
+                redesign (the kept route on an f32 copy); the step times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -74,6 +86,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+L2_BYTES = 50e6     # a call that moves less may stay in the L2 cache
 
 # the FEMNIST run (examples/femnist_federated_training.py, executor.py)
 CLIENTS, CLIENT_BATCH, Q, L, R, ITERS, LAM, LR = 10, 20, 1152, 2, 1, 5, \
@@ -374,44 +387,105 @@ def wire_stream(codes: np.ndarray, bits: int) -> bytes:
                        bitorder="little").tobytes()
 
 
-def check_kmeans_assign(tag, x, c):
-    """kmeans_assign vs its plain version; returns max |sqdist err| where
-    the codes agree."""
-    from repro_torch.kernels import ops, ref
+def misaligned(x):
+    """A contiguous copy of x one element off a 16-byte boundary: the same
+    values, on the kernels' fallback routes (generic, scalar)."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
-    codes, sq = ops.kmeans_assign(x, c)
-    codes_r, sq_r = ref.kmeans_assign_ref(x, c)
+
+def check_kmeans_assign(tag, x, c, lmask=None):
+    """kmeans_assign vs its plain version (codes equal but for near-ties,
+    distances within SQDIST_RTOL·(1 + ‖x‖²)); on d8 also bitwise the
+    generic route (through an all-valid mask and through a misaligned
+    copy); a bf16 x bitwise its f32 upcast. Returns max |sqdist err| where
+    the codes agree."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import (assign_route,
+                                                   kmeans_assign_kernel)
+
+    route = assign_route(x, c.shape[1], lmask)
+    codes, sq = kmeans_assign_kernel(x, c, lmask)
+    codes_r, sq_r = ref.kmeans_assign_ref(x, c, lmask)
     torch.cuda.synchronize()
     differ = codes.long() != codes_r
-    ties = ref.near_ties(x, c, None, TIE_RTOL)
+    ties = ref.near_ties(x, c, lmask, TIE_RTOL)
     if bool((differ & ~ties).any()):
         fail(f"kmeans_assign {tag}: {int((differ & ~ties).sum())} codes "
              f"differ away from near-ties")
     agree = ~differ
-    scale = 1 + x.square().sum(-1)
+    scale = 1 + x.float().square().sum(-1)
     err = (sq - sq_r).abs()
     rel = float((err / scale)[agree].max())
     if not rel <= SQDIST_RTOL:
         fail(f"kmeans_assign {tag}: sqdist off by {rel} of (1 + ‖x‖²)")
+    extra = ""
+    if route == "d8":
+        ones = torch.ones(c.shape[1], device=x.device)
+        for how, (cg, sg) in (("mask", kmeans_assign_kernel(x, c, ones)),
+                              ("misaligned",
+                               kmeans_assign_kernel(misaligned(x), c))):
+            if not (torch.equal(codes, cg) and torch.equal(sq, sg)):
+                fail(f"kmeans_assign {tag}: d8 and generic ({how}) differ")
+        extra += "; bitwise the generic route (all-valid mask, misaligned)"
+    if x.dtype != torch.float32:
+        cf, sf = kmeans_assign_kernel(x.float(), c, lmask)
+        if not (torch.equal(codes, cf) and torch.equal(sq, sf)):
+            fail(f"kmeans_assign {tag}: {x.dtype} x differs from its f32 "
+                 f"upcast")
+        extra += "; bitwise the f32 upcast's"
     err_max = float(err[agree].max())
-    say("parity", f"kmeans_assign {tag}: x {tuple(x.shape)} L={c.shape[1]}: "
-        f"{int(differ.sum())} codes differ (all near-ties); max |sqdist "
-        f"err| {err_max:.3e} ({rel:.3e} of 1 + ‖x‖²)")
+    say("parity", f"kmeans_assign {tag} (route {route}): x {tuple(x.shape)} "
+        f"{str(x.dtype)[6:]} L={c.shape[1]}"
+        f"{' masked' if lmask is not None else ''}: {int(differ.sum())} "
+        f"codes differ (all near-ties); max |sqdist err| {err_max:.3e} "
+        f"({rel:.3e} of 1 + ‖x‖²){extra}")
     return err_max
 
 
+def check_assign_codes(tag, x, c):
+    """kmeans_assign, pq_quantize and lloyd_update give every row the same
+    code, near-ties included: lloyd_update's code of a row is read from the
+    counts of a one-row problem (the first 4096 rows of problem 0)."""
+    from repro_torch.kernels import ops
+
+    codes_a, _ = ops.kmeans_assign(x, c)
+    _, _, codes_q = ops.pq_quantize(x, c)
+    m = min(4096, x.shape[1])
+    rows = x[0, :m].reshape(m, 1, x.shape[2]).contiguous()
+    _, cnt = ops.lloyd_update(rows, c[:1].expand(m, -1, -1).contiguous())
+    torch.cuda.synchronize()
+    codes_l = cnt.argmax(-1).to(torch.int32)
+    if not (torch.equal(codes_a, codes_q) and torch.equal(codes_a[0, :m],
+                                                          codes_l)):
+        fail(f"kmeans_assign {tag}: codes differ from pq_quantize's or "
+             f"lloyd_update's")
+    say("parity", f"kmeans_assign {tag}: x {tuple(x.shape)} "
+        f"{str(x.dtype)[6:]} L={c.shape[1]}: codes equal to pq_quantize's "
+        f"on every row and to lloyd_update's on {m} one-row problems "
+        f"(half the rows midway between two centroids)")
+
+
 def scalar_range(x, bits):
-    """The scalarq compressor's per-problem range (lo, scale)."""
-    lo = x.amin(-1)
-    scale = (x.amax(-1) - lo) / ((1 << bits) - 1)
+    """The scalarq compressor's per-problem range (lo, scale), f32."""
+    lo = x.amin(-1).float()
+    scale = (x.amax(-1).float() - lo) / ((1 << bits) - 1)
     return lo, torch.where(scale > 0, scale, 1.0)
 
 
-def check_scalar(tag, x, bits):
-    """scalar_quantize vs its plain version: codes and recon bitwise."""
+def check_scalar(tag, x, bits, lo=None, scale=None):
+    """scalar_quantize vs its plain version: codes and recon bitwise; on
+    vec also bitwise the scalar route (forced on the same x, and on a
+    misaligned copy); a bf16 x bitwise its f32 upcast."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.scalar_quant import (scalar_quantize_kernel,
+                                                  scalar_route)
 
-    lo, scale = scalar_range(x, bits)
+    if lo is None:
+        lo, scale = scalar_range(x, bits)
+    route = scalar_route(x)
     codes, recon = ops.scalar_quantize(x, lo, scale, bits)
     codes_r, recon_r = ref.scalar_quantize_ref(x, lo, scale, bits)
     torch.cuda.synchronize()
@@ -419,9 +493,20 @@ def check_scalar(tag, x, bits):
         fail(f"scalar_quantize {tag}: codes or recon not bitwise equal to "
              f"the plain version ({int((codes != codes_r).sum())} codes, "
              f"{int((recon != recon_r).sum())} recon values differ)")
-    say("parity", f"scalar_quantize {tag}: x {tuple(x.shape)} b={bits}: "
-        f"codes and recon bitwise equal")
-    return 0.0
+    others = []
+    if route == "vec":
+        others += [("the scalar route", x, "scalar"),
+                   ("the scalar route (misaligned)", misaligned(x), None)]
+    if x.dtype != torch.float32:
+        others.append(("the f32 upcast", x.float(), None))
+    for what, xo, forced in others:
+        co, ro = scalar_quantize_kernel(xo, lo, scale, bits, forced)
+        if not (torch.equal(codes, co) and torch.equal(recon, ro)):
+            fail(f"scalar_quantize {tag}: differs from {what}")
+    say("parity", f"scalar_quantize {tag} (route {route}): x "
+        f"{tuple(x.shape)} {str(x.dtype)[6:]} b={bits}: codes and recon "
+        f"bitwise equal"
+        + "".join(f"; bitwise {what}'s" for what, _, _ in others))
 
 
 def check_pack(tag, codes, bits):
@@ -664,21 +749,8 @@ def phase_parity(gen):
         "residual exactly 0; empty cluster: count 0, dsums 0")
 
     errs = {"lloyd_update": lloyd_err, "pq_quantize": pq_err}
-    # kmeans_assign: the kmeans phase's grouping, then the edge shapes
-    errs["kmeans_assign"] = max(
-        check_kmeans_assign("main", x, c),
-        *(check_kmeans_assign(tag, normal(p, n, DSUB), normal(p, l, DSUB))
-          for tag, (p, n, l) in {"ragged N": (3, 1037, 2),
-                                 "L=3": (4, 5000, 3)}.items()))
-    # scalar_quantize: the chain's carrier, the standalone scalarq shape,
-    # every width at a ragged N with a constant problem (scale 1)
-    errs["scalar_quantize"] = check_scalar(
-        "chain carrier", normal(CLIENTS, DL_KEPT) * 1e-3, DL_BITS)
-    check_scalar("standalone", normal(CLIENTS, DL_TOTAL) * 1e-4, DL_BITS)
-    for bits in (*PACK_BITS, 3):
-        xe = normal(3, 1037)
-        xe[2] = 0.5
-        check_scalar("ragged N", xe, bits)
+    errs["kmeans_assign"] = phase_assign_parity(gen, x, c)
+    errs["scalar_quantize"] = phase_scalar_parity(gen)
     # pack_codes / unpack_codes: the standalone payload's codes, every
     # width at a ragged count
     codes = torch.randint(0, 1 << DL_BITS, (CLIENTS, DL_TOTAL),
@@ -691,6 +763,82 @@ def phase_parity(gen):
         check_pack("count 999", ce, bits)
     errs["flash_attention"] = phase_flash_parity(gen)
     return errs
+
+
+def phase_assign_parity(gen, x, c):
+    """kmeans_assign on both routes: the kmeans phase's grouping (d8, f32,
+    L = 2), d8 in f32 and bf16 at L = 2 and 16 with a ragged N, generic
+    masked (L = 3 in 8), unmasked L = 3, D = 16 and a misaligned view; its
+    codes against pq_quantize's and lloyd_update's on d8, near-ties
+    included. Returns the max |sqdist err|."""
+    dev = x.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    from repro_torch.kernels import ops
+
+    err = check_kmeans_assign("main", x, c)
+    for tag, (p, n, d, l, masked, dtype) in {
+            "ragged N": (3, 1037, DSUB, 2, False, torch.float32),
+            "ragged N bf16": (3, 1037, DSUB, 2, False, torch.bfloat16),
+            "L=16": (4, 5001, DSUB, 16, False, torch.float32),
+            "L=16 bf16": (4, 5001, DSUB, 16, False, torch.bfloat16),
+            "L=3 masked": (4, 5000, DSUB, 3, True, torch.float32),
+            "L=3 masked bf16": (4, 5000, DSUB, 3, True, torch.bfloat16),
+            "L=3": (4, 5000, DSUB, 3, False, torch.float32),
+            "D=16 L=5": (3, 2001, 16, 5, False, torch.float32)}.items():
+        cp, lmask = ops._pad_centroids(normal(p, l, d)) if masked \
+            else (normal(p, l, d), None)
+        err = max(err, check_kmeans_assign(tag, normal(p, n, d).to(dtype),
+                                           cp, lmask))
+    err = max(err, check_kmeans_assign(
+        "misaligned", misaligned(normal(3, 1037, DSUB)), normal(3, 4, DSUB)))
+    for l in (2, 16):
+        ce = normal(2, l, DSUB)
+        xe = normal(2, 6001, DSUB)
+        pick = torch.randint(0, l, (2, 2, 3000), generator=gen).to(dev)
+        mid = (torch.gather(ce, 1, pick[0].unsqueeze(-1).expand(-1, -1, 8))
+               + torch.gather(ce, 1, pick[1].unsqueeze(-1).expand(-1, -1, 8)))
+        xe[:, :3000] = mid / 2 + 1e-7 * xe[:, :3000]
+        for dtype in (torch.float32, torch.bfloat16):
+            check_assign_codes(f"L={l} near-ties", xe.to(dtype), ce)
+    return err
+
+
+def phase_scalar_parity(gen):
+    """scalar_quantize on both routes, in f32 and bf16: the chain's carrier,
+    the standalone scalarq shape, every width at N = 1036 (vec) and 1037
+    (scalar) with a constant problem (scale 1), a misaligned view, and
+    values exactly on half-levels and past both ends. Every check is
+    bitwise: returns the max |err|, 0."""
+    dev = torch.device("cuda")
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        check_scalar(f"chain carrier {name}",
+                     (normal(CLIENTS, DL_KEPT) * 1e-3).to(dtype), DL_BITS)
+        check_scalar(f"standalone {name}",
+                     (normal(CLIENTS, DL_TOTAL) * 1e-4).to(dtype), DL_BITS)
+        for n in (1036, 1037):
+            for bits in (*PACK_BITS, 3):
+                xe = normal(3, n)
+                xe[2] = 0.5
+                check_scalar(f"N={n} {name}", xe.to(dtype), bits)
+        check_scalar(f"misaligned {name}",
+                     misaligned(normal(3, 1036).to(dtype)), DL_BITS)
+        # half-levels k + 1/2 (exact in bf16 below 128), rounded half to
+        # even, below 0 clamped; past the top level clamped
+        for n in (1036, 1037):
+            half = torch.arange(n, device=dev) % 140 - 11.5
+            xe = torch.stack([half, torch.arange(n, device=dev) * 0.5])
+            check_scalar(f"half-levels N={n} {name}", xe.to(dtype), DL_BITS,
+                         torch.zeros(2, device=dev),
+                         torch.ones(2, device=dev))
+    return 0.0
 
 
 def make_batches(make_data, seed, steps):
@@ -826,7 +974,79 @@ def phase_kmeans(gen):
         f"{float(res.distortion.mean()):.6f} vs "
         f"{float(plain.distortion.mean()):.6f} (max relative "
         f"{rel:.3e})")
-    return counts
+    del x, res, plain
+    return (counts, *kmeans_serve_cut(gen))
+
+
+def kmeans_serve_cut(gen):
+    """batched_kmeans on "auto" at the serve cut's size (4 problems of
+    1048576 x 8, L = 16, 4 iterations) on a bf16 x: 4 lloyd_update launches
+    and 1 kmeans_assign, all reading bf16 (no f32 copy: the peak allocation
+    grows by less than 4 bytes per element of x), bitwise the same call on
+    the f32 upcast; both calls timed on the host clock. Then kmeans_assign
+    on this x and the call's own f32 centroids is held against its plain
+    version (``check_kmeans_assign``), and its codes and distances give the
+    call's codes and distortion bit for bit. Returns the launch counts and
+    kmeans_assign's max |sqdist err| there."""
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
+
+    p, n, d, l, iters = SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_D, SERVE_PQ_L, 4
+    seed = int(torch.randint(0, 1 << 30, (1,), generator=gen))
+    xb = torch.randn((p, n, d), device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    km.batched_kmeans(xb[:, :4096], l, 1, backend="auto")   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = km.batched_kmeans(xb, l, iters, backend="auto")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _build.launch_counts()
+    grew = torch.cuda.max_memory_allocated() - base
+    want = {"lloyd_update": iters, "kmeans_assign": 1}
+    say("kmeans", f"batched_kmeans x {tuple(xb.shape)} bfloat16 L={l} "
+        f"iters={iters} on 'auto': {ms:.3f} ms (host clock); launches "
+        f"{counts} (want {want}); peak allocation grew by {grew / 1e6:.1f} "
+        f"MB ({grew / xb.numel():.2f} bytes per element of x; an f32 copy "
+        f"would be {4 * xb.numel() / 1e6:.1f} MB)")
+    if counts != want:
+        fail(f"kmeans (serve cut) launch counts {counts} != {want}")
+    if not grew < 4 * xb.numel():
+        fail(f"kmeans (serve cut): the peak allocation grew by {grew} "
+             f"bytes, an f32 copy of x or more")
+    xf = xb.float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    up = km.batched_kmeans(xf, l, iters, backend="auto")
+    torch.cuda.synchronize()
+    ms_f = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(res.centroids, up.centroids.to(torch.bfloat16))
+            and torch.equal(res.codes, up.codes)
+            and torch.equal(res.distortion, up.distortion)):
+        fail("kmeans (serve cut): bf16 x differs from its f32 upcast")
+    if not bool(torch.isfinite(res.distortion).all()):
+        fail("kmeans (serve cut): non-finite distortion")
+    say("kmeans", f"the same call on the f32 upcast: {ms_f:.3f} ms (host "
+        f"clock); centroids (rounded to bf16), codes and distortion "
+        f"{float(res.distortion.mean()):.6f} bitwise equal")
+    del xf
+    cents = km.batched_lloyd(xb, l, iters, backend="auto")
+    if not torch.equal(cents, up.centroids):
+        fail("kmeans (serve cut): the bf16 x's f32 centroids differ from "
+             "its upcast's")
+    err = check_kmeans_assign("serve cut", xb, cents)
+    codes, sq = kmeans_assign_kernel(xb, cents)
+    if not (torch.equal(res.codes, codes)
+            and torch.equal(res.distortion, sq.sum(-1) / n)):
+        fail("kmeans (serve cut): batched_kmeans's codes or distortion "
+             "differ from kmeans_assign's on its own centroids")
+    say("kmeans", "batched_kmeans's codes and distortion bitwise "
+        "kmeans_assign's on its f32 centroids (bitwise the upcast's)")
+    return counts, err
 
 
 def phase_slice2(seed, steps):
@@ -1394,13 +1614,11 @@ def pq_work(x, l):
 
 
 def phase_times(gen, counts, errs, payload_codes, payload_words,
-                serve_counts):
+                serve_counts, assign_counts):
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
     from repro_torch.kernels.lloyd_update import lloyd_update_kernel
     from repro_torch.kernels.pq_quantize import pq_quantize_kernel
     from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
-                                                  scalar_quantize_kernel,
                                                   unpack_codes_kernel)
 
     dev = torch.device("cuda")
@@ -1423,24 +1641,6 @@ def phase_times(gen, counts, errs, payload_codes, payload_words,
                  lambda: pq_quantize_kernel(x, c),
                  lambda: ref.pq_quantize_ref(x, c),
                  *pq_work(x, L)))
-    # kmeans_assign: reads x and the codebook; writes codes and sqdist
-    rows.append(("kmeans_assign", "src/repro_torch/csrc/kmeans_assign.cu",
-                 "src/repro/kernels/kmeans_assign.py:58",
-                 lambda: kmeans_assign_kernel(x, c),
-                 lambda: ref.kmeans_assign_ref(x, c),
-                 nbytes(x, c) + 2 * p * M * 4,
-                 p * M * (2 * L * DSUB + 2 * DSUB)))
-    # scalar_quantize at the chain's carrier: reads x, lo, scale; writes
-    # codes and recon; a subtract, divide, round, two clamps, a multiply
-    # and an add per value
-    xs = torch.randn((CLIENTS, DL_KEPT), generator=gen).to(dev) * 1e-3
-    lo, scale = scalar_range(xs, DL_BITS)
-    rows.append(("scalar_quantize", "src/repro_torch/csrc/scalar_quant.cu",
-                 "src/repro/kernels/scalar_quant.py:49",
-                 lambda: scalar_quantize_kernel(xs, lo, scale, DL_BITS),
-                 lambda: ref.scalar_quantize_ref(xs, lo, scale, DL_BITS),
-                 nbytes(xs, lo, scale) + 2 * xs.numel() * 4,
-                 7 * xs.numel()))
     # pack / unpack at the standalone scalarq payload: 4 bytes per code in
     # or out, b/8 bytes per code the other way; a mask, shift and OR per code
     rows.append(("pack_codes", "src/repro_torch/csrc/scalar_quant.cu",
@@ -1488,6 +1688,7 @@ def phase_times(gen, counts, errs, payload_codes, payload_words,
         f"{b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.2f} MB)")
     kernels.append(time_flash(gen, counts, errs))
     time_serve_pq(gen, serve_counts)
+    kernels += time_assign_scalar(gen, counts, errs, assign_counts)
     return kernels
 
 
@@ -1583,6 +1784,168 @@ def time_serve_pq(gen, serve_counts):
                 f"({launches * (k_ms - b_ms) * 1e3:.2f} us above the bound)")
 
 
+def assign_work(x, l):
+    """(bytes, operations) of one kmeans_assign call: x and the codebook
+    read once, a code and a distance written per row; per row 2·L·D for the
+    scores and 2·D for ‖x‖²."""
+    p, n, d = x.shape
+    return (x.numel() * x.element_size() + p * l * d * 4 + 2 * p * n * 4,
+            p * n * (2 * l * d + 2 * d))
+
+
+def scalar_work(x):
+    """(bytes, operations) of one scalar_quantize call: x, lo and scale read
+    once, codes and recon written once; a subtract, divide, round, two
+    clamps, a multiply and an add per value."""
+    p, n = x.shape
+    return (x.numel() * x.element_size() + 2 * p * 4 + 2 * p * n * 4,
+            7 * p * n)
+
+
+def time_assign_scalar(gen, counts, errs, assign_counts):
+    """kmeans_assign and scalar_quantize at the shapes their users reach,
+    each with its floor (a one-element call on each route), the time of
+    the call as it was before the redesign (the kept route on an f32 copy:
+    generic for kmeans_assign, forced by an all-valid mask; scalar for
+    scalar_quantize, forced on the aligned tensor), the plain version's
+    time, the
+    bound, the share of it reached (not for shapes that fit in the 50 MB L2:
+    those are L2-resident) and the launches per path. Returns their two
+    entries of the kernels line (at the FEMNIST grouping and the chain's
+    carrier, the main paths' own calls)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import (assign_route,
+                                                   kmeans_assign_kernel)
+    from repro_torch.kernels.scalar_quant import (scalar_quantize_kernel,
+                                                  scalar_route)
+
+    dev = torch.device("cuda")
+    cuda_gen = torch.Generator("cuda").manual_seed(
+        int(torch.randint(0, 1 << 30, (1,), generator=gen)))
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=cuda_gen).to(dtype)
+
+    x1, c1, valid = normal(1, 1, DSUB), normal(1, L, DSUB), \
+        torch.ones(L, device=dev)
+    v1, v4 = normal(1, 1), normal(1, 4)
+    zero, one = torch.zeros(1, device=dev), torch.ones(1, device=dev)
+    floor = {
+        "kmeans_assign": (device_ms(lambda: kmeans_assign_kernel(x1, c1)),
+                          device_ms(lambda: kmeans_assign_kernel(x1, c1,
+                                                                 valid))),
+        "scalar_quantize": (device_ms(lambda: scalar_quantize_kernel(
+                                v4, zero, one, DL_BITS)),
+                            device_ms(lambda: scalar_quantize_kernel(
+                                v1, zero, one, DL_BITS)))}
+    say("times", f"floors (one-element calls, device, CUDA graph): "
+        f"kmeans_assign 1 row {floor['kmeans_assign'][0] * 1e3:.2f} us on "
+        f"d8, {floor['kmeans_assign'][1] * 1e3:.2f} us on generic; "
+        f"scalar_quantize {floor['scalar_quantize'][0] * 1e3:.2f} us on vec "
+        f"(4 values), {floor['scalar_quantize'][1] * 1e3:.2f} us on scalar "
+        f"(1 value)")
+
+    def report(name, shape, kern, before, plain, nb, flops, launches,
+               big):
+        calls = dict(calls=20, reps=10) if big else {}
+        k_ms = device_ms(kern, **calls)
+        bf_ms = device_ms(before, **calls)
+        p_ms = eager_ms(plain, calls=10) if big else device_ms(plain)
+        b_ms, b_by = bound(nb, flops)
+        share = "L2-resident, not held to the HBM bound" \
+            if nb < L2_BYTES else f"{b_ms / k_ms:.1%} of it reached"
+        say("times", f"{name} {shape}: kernel {k_ms * 1e3:.2f} us (device, "
+            f"CUDA graph; floor {floor[name][0] * 1e3:.2f} us), as called "
+            f"before the redesign {bf_ms * 1e3:.2f} us; plain "
+            f"{p_ms * 1e3:.2f} us; "
+            f"bound {b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.1f} MB, "
+            f"{flops / 1e6:.1f} MOP), {share}; launches: {launches}")
+        return k_ms, p_ms, b_ms, b_by
+
+    entries = []
+    # kmeans_assign: the FEMNIST grouping (f32), the serve cut (bf16, f32)
+    for shape, (p, n, l, dtype) in (
+            ("FEMNIST grouping", (CLIENTS * R, M, L, torch.float32)),
+            ("serve cut", (SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_L,
+                           torch.bfloat16)),
+            ("serve cut", (SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_L,
+                           torch.float32))):
+        x, c = normal(p, n, DSUB, dtype=dtype), normal(p, l, DSUB)
+        xf = torch.empty(x.shape, device=dev)
+        ones = torch.ones(l, device=dev)
+
+        def before(x=x, xf=xf, c=c, ones=ones):
+            if x.dtype != torch.float32:
+                xf.copy_(x)             # the f32 copy the callers made
+                return kmeans_assign_kernel(xf, c, ones)
+            return kmeans_assign_kernel(x, c, ones)
+        kc = assign_counts if shape == "serve cut" else counts
+        line = report(
+            "kmeans_assign", f"{shape} {tuple(x.shape)} {str(dtype)[6:]} "
+            f"L={l} (route {assign_route(x, l, None)})",
+            lambda x=x, c=c: kmeans_assign_kernel(x, c),
+            before, lambda x=x, c=c: ref.kmeans_assign_ref(x, c),
+            *assign_work(x, l),
+            f"{kc.get('kmeans_assign', 0)} per batched_kmeans call",
+            shape == "serve cut")
+        if not entries:
+            entries.append(line)
+        del x, xf
+    # scalar_quantize at b = 8: the chain's carrier and the standalone
+    # downlink (f32), a Llama-3 8B cut's gradient (bf16, f32)
+    for shape, (p, n, dtype, launches) in (
+            ("chain carrier", (CLIENTS, DL_KEPT, torch.float32,
+                               f"{counts.get('scalar_quantize', 0)} in the "
+                               f"slice-2 run (1 per step)")),
+            ("standalone downlink", (CLIENTS, DL_TOTAL, torch.float32,
+                                     "1 per payload")),
+            ("Llama-3 8B cut gradient", (SERVE_B, 4096 * SERVE_P,
+                                         torch.bfloat16,
+                                         "none on a path yet")),
+            ("Llama-3 8B cut gradient", (SERVE_B, 4096 * SERVE_P,
+                                         torch.float32,
+                                         "none on a path yet"))):
+        x = normal(p, n, dtype=dtype) * 1e-3
+        lo, scale = scalar_range(x, DL_BITS)
+        xf = x if dtype == torch.float32 else torch.empty(x.shape,
+                                                          device=dev)
+
+        def before(x=x, xf=xf, lo=lo, scale=scale):
+            if x.dtype != torch.float32:
+                xf.copy_(x)             # the f32 copy the callers made
+            return scalar_quantize_kernel(xf, lo, scale, DL_BITS, "scalar")
+        line = report(
+            "scalar_quantize", f"{shape} {tuple(x.shape)} "
+            f"{str(dtype)[6:]} b={DL_BITS} (route {scalar_route(x)})",
+            lambda x=x, lo=lo, scale=scale: scalar_quantize_kernel(
+                x, lo, scale, DL_BITS),
+            before, lambda x=x, lo=lo, scale=scale: ref.scalar_quantize_ref(
+                x, lo, scale, DL_BITS), *scalar_work(x), launches,
+            n > 1e6)
+        if len(entries) == 1:
+            entries.append(line)
+        if n > 1e6:     # the card's write rate, for the write-heavy gap
+            codes = torch.empty((p, n), device=dev, dtype=torch.int32)
+            recon = torch.empty((p, n), device=dev)
+            f_ms = device_ms(lambda: (codes.fill_(0), recon.fill_(0)),
+                             calls=20, reps=10)
+            say("times", f"scalar_quantize {shape} {str(dtype)[6:]}: writing "
+                f"its two outputs alone (fill_) takes {f_ms * 1e3:.2f} us, "
+                f"{8 * p * n / f_ms / 1e9:.2f} TB/s")
+            del codes, recon
+        del x, xf
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+             "launches": counts.get(name, 0), "max_abs_err": errs[name],
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None}
+            for (name, src, replaces), (k_ms, p_ms, b_ms, b_by) in zip(
+                (("kmeans_assign", "kmeans_assign.cu",
+                  "src/repro/kernels/kmeans_assign.py:58"),
+                 ("scalar_quantize", "scalar_quant.cu",
+                  "src/repro/kernels/scalar_quant.py:49")), entries)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1605,7 +1968,8 @@ def main(argv=None) -> int:
     errs = phase_parity(gen)
     _, run3 = phase_slice(args.seed, args.steps)
     phase_profile("slice", run3)
-    counts = phase_kmeans(gen)
+    counts, assign_counts, assign_err = phase_kmeans(gen)
+    errs["kmeans_assign"] = max(errs["kmeans_assign"], assign_err)
     slice2, run3, model, batch = phase_slice2(args.seed, args.steps)
     phase_profile("slice 2", run3)
     # each kernel's launches on the path this slice runs it on: the
@@ -1624,7 +1988,8 @@ def main(argv=None) -> int:
     errs["flash_attention"] = max(errs["flash_attention"], layer_err)
     for kernel, e in pq_errs.items():
         errs[kernel] = max(errs[kernel], e)
-    kernels = phase_times(gen, counts, errs, codes, words, serve)
+    kernels = phase_times(gen, counts, errs, codes, words, serve,
+                          assign_counts)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -321,23 +321,26 @@ class ScalarQuantCompressor(CutCompressor):
                              f"{_km.available_backends()}")
 
     def compress(self, z, *, generator=None) -> Compressed:
-        zf = z.float().reshape(z.shape[0], -1)
-        lo = zf.amin(-1)
-        hi = zf.amax(-1)
+        flat = z.reshape(z.shape[0], -1)
+        # the min and max of z's own values, exact in f32 (bf16 -> f32 is
+        # exact): no f32 copy of z on the kernel path
+        lo = flat.amin(-1).float()
+        hi = flat.amax(-1).float()
         levels = (1 << self.bits) - 1
         scale = (hi - lo) / levels
         scale = torch.where(scale > 0, scale, 1.0)
         if generator is not None:   # stochastic: E[codes·scale] = z − lo
-            t = (zf - lo[:, None]) / scale[:, None]
+            t = (flat.float() - lo[:, None]) / scale[:, None]
             t = torch.floor(t + torch.rand(t.shape, generator=generator,
                                            device=t.device))
             q = t.clamp(0.0, float(levels))
             codes, recon = q.to(torch.int32), lo[:, None] + q * scale[:, None]
         elif _km.resolve_backend(self.backend, z.device) == "cuda":
             _km._require_cuda(z)
-            codes, recon = ops.scalar_quantize(zf, lo, scale, self.bits)
+            codes, recon = ops.scalar_quantize(flat, lo, scale, self.bits)
         else:
-            codes, recon = ref.scalar_quantize_ref(zf, lo, scale, self.bits)
+            codes, recon = ref.scalar_quantize_ref(flat, lo, scale,
+                                                   self.bits)
         recon = recon.reshape(z.shape).to(z.dtype)
         return Compressed(recon=recon, residual=z - recon,
                           payload=ScalarPayload(codes=codes.reshape(z.shape),

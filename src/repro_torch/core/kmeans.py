@@ -219,16 +219,17 @@ def batched_kmeans(x: torch.Tensor, num_clusters: int, num_iters: int = 8,
                    ) -> KMeansResult:
     """Lloyd's algorithm with a fixed iteration count on P problems.
 
-    x (P, N, D), computed in f32 whatever its dtype. Returns
-    ``KMeansResult(centroids (P, L, D) in x.dtype, codes (P, N) int32,
-    distortion (P,))``: the codes and the mean squared distance per point
-    come from the backend's ``assign_dist`` (one ``kmeans_assign`` launch
-    on ``"cuda"``)."""
-    xf = x.float()
-    cents = batched_lloyd(xf, num_clusters, num_iters, generator=generator,
+    x (P, N, D), computed in f32 whatever its dtype; on ``"cuda"`` an f32 or
+    bf16 x is read as it is, with no f32 copy (the kernels upcast in
+    registers, exactly), so a bf16 x gives bitwise its f32 upcast's result.
+    Returns ``KMeansResult(centroids (P, L, D) in x.dtype, codes (P, N)
+    int32, distortion (P,))``: the codes and the mean squared distance per
+    point come from the backend's ``assign_dist`` (one ``kmeans_assign``
+    launch on ``"cuda"``)."""
+    cents = batched_lloyd(x, num_clusters, num_iters, generator=generator,
                           chunk=chunk, backend=backend,
                           init_centroids=init_centroids)
-    codes, sqdist = get_backend(backend, x.device).assign_dist(xf, cents)
+    codes, sqdist = get_backend(backend, x.device).assign_dist(x, cents)
     distortion = sqdist.sum(-1) / max(x.shape[1], 1)
     return KMeansResult(cents.to(x.dtype), codes, distortion)
 

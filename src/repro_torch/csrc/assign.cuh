@@ -11,12 +11,11 @@
 // codebook that sits in shared memory.
 //
 // Two forms of the same arithmetic: assign_row_best reads the row from
-// shared memory at run-time D and L (the generic route and kmeans_assign),
-// assign_row_reg reads it from registers at compile-time D and L (the d8
-// route). Both run k ascending in one fmaf chain per centroid, then
-// 2·dot − ‖c‖² as one fmaf (2·dot is exact, so this is the rounding of the
-// subtraction alone), then a strict >, so they give the same code bit for
-// bit.
+// shared memory at run-time D and L (the generic routes), assign_row_reg
+// reads it from registers at compile-time D and L (the d8 routes). Both
+// run k ascending in one fmaf chain per centroid, then 2·dot − ‖c‖² as one
+// fmaf (2·dot is exact, so this is the rounding of the subtraction alone),
+// then a strict >, so they give the same code and best score bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,12 +103,14 @@ __device__ __forceinline__ int assign_row(const float* xr, const float* cs,
 // and the groups' (best, code) merge left to right by the same strict >
 // (the right group wins only if its best is greater): this is assign_row's
 // result in every case (first index of the maximum; NaN scores never win),
-// with a shorter chain of dependent compares.
+// with a shorter chain of dependent compares. Where best_score is given it
+// receives the winning score, assign_row_best's *best_score bit for bit.
 template <int L, int D, bool kMasked>
 __device__ __forceinline__ int assign_row_reg(const float (&xr)[D],
                                               const float (&cs)[L * D],
                                               const float (&cn)[L],
-                                              const float* ms) {
+                                              const float* ms,
+                                              float* best_score = nullptr) {
   constexpr int G = L < 4 ? L : 4;  // centroids per group
   constexpr int NG = L / G;
   static_assert(NG * G == L && (NG & (NG - 1)) == 0,
@@ -143,6 +144,7 @@ __device__ __forceinline__ int assign_row_reg(const float (&xr)[D],
         gb[g] = gb[g + step];
         gc[g] = gc[g + step];
       }
+  if (best_score) *best_score = gb[0];
   return gc[0];
 }
 

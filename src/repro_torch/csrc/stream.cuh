@@ -1,6 +1,6 @@
-// Row streaming for the d8 route of lloyd_update.cu and pq_quantize.cu: each
-// of a block's kThreads consumer threads takes whole rows of 8 values into
-// registers, kRows rows per tile.
+// Row streaming for the d8 routes of lloyd_update.cu, pq_quantize.cu and
+// kmeans_assign.cu: each of a block's kThreads consumer threads takes whole
+// rows of 8 values into registers, kRows rows per tile.
 //
 // Row order. Block b of nb blocks of one problem visits tiles b, b + nb,
 // b + 2·nb, ... of kThreads·kRows rows each, and thread t takes rows

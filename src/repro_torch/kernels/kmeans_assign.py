@@ -7,6 +7,15 @@ The kernel is ``csrc/kmeans_assign.cu``; its plain version is
     codes[i]  = argmax_l (2·x_i·c_l − ‖c_l‖²)       over valid centroids
     sqdist[i] = max(‖x_i‖² − max_l (2·x_i·c_l − ‖c_l‖²), 0)
 
+x is f32 or bf16, read in its own dtype (the kernel upcasts in registers,
+exactly), so a bf16 x gives bitwise its f32 upcast's codes and distances.
+
+Two routes, picked by ``assign_route``: ``d8`` (no mask and what
+``lloyd_update.row_route`` calls d8: D = 8, L in ``D8_L``, x 16-byte
+aligned; persistent blocks stream whole rows into registers) and
+``generic`` (any D <= 64, L <= 64, a mask, any alignment). Both give the
+same codes and distances bit for bit.
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. The kernel takes its codes from the same
 routine as ``lloyd_update`` and ``pq_quantize`` (``csrc/assign.cuh``); it
@@ -22,31 +31,44 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lloyd_update import _ptr, check_cuda_inputs
+from repro_torch.kernels.lloyd_update import (D8_TILE, _ptr,
+                                              check_cuda_inputs, d8_grid,
+                                              row_route)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+D8_MIN_TILES = 1   # d8 route: tiles a block takes at least (PERF.md)
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def assign_route(x: torch.Tensor, num_centroids: int,
+                 lmask: Optional[torch.Tensor]) -> str:
+    """``"d8"`` where no mask is given and ``row_route`` says d8;
+    ``"generic"`` otherwise."""
+    return "generic" if lmask is not None else row_route(x, num_centroids)
 
 
 def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
                          lmask: Optional[torch.Tensor] = None):
-    """x (P, N, D) f32, centroids (P, L, D), lmask (L,) or None (every
-    centroid valid).
+    """x (P, N, D) f32 or bf16, centroids (P, L, D), lmask (L,) or None
+    (every centroid valid).
 
     Returns (codes (P, N) int32, sqdist (P, N) f32)."""
     if x.device.type == "cpu":
         codes, sqdist = ref.kmeans_assign_ref(x, centroids, lmask)
         return codes.to(torch.int32), sqdist
     check_cuda_inputs("kmeans_assign", x, centroids, lmask)
-    if x.dtype != torch.float32:
-        raise ValueError(f"kmeans_assign: x must be f32, got {x.dtype}")
     p, n, d = x.shape
     l = centroids.shape[1]
+    d8 = assign_route(x, l, lmask) == "d8"
+    blocks = d8_grid("kmeans_assign", "kmeans_assign_d8_occupancy", x, l,
+                     D8_TILE, D8_MIN_TILES) if d8 else 0
     lib = _build.load("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
     sqdist = torch.empty((p, n), device=x.device, dtype=torch.float32)
     rc = lib.kmeans_assign_launch(
         x.data_ptr(), centroids.data_ptr(), _ptr(lmask),
-        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d,
+        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d, int(d8),
+        int(x.dtype == torch.bfloat16), D8_TILE, blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kmeans_assign: launch failed with CUDA error "

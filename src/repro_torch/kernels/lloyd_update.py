@@ -79,18 +79,24 @@ def d8_blocks(p: int, n: int, sms: int, per_sm: int, tile: int,
 
 
 @functools.lru_cache(maxsize=None)
-def d8_occupancy(lib_name: str, fn: str, num_centroids: int, bf16: bool,
-                 device: int) -> int:
-    """Resident blocks per SM of a d8 instance, as the CUDA runtime
-    reports it; asked once per instance and card, before any graph
-    capture."""
-    lib = _build.load(lib_name, fn, [ctypes.c_int, ctypes.c_int])
+def occupancy(lib_name: str, fn: str, device: int, *args: int) -> int:
+    """Resident blocks per SM of a persistent kernel's instance, as the
+    CUDA runtime reports it (``fn(*args)`` of the library, the instance's
+    template arguments as ints); asked once per instance and card, before
+    any graph capture."""
+    lib = _build.load(lib_name, fn, [ctypes.c_int] * len(args))
     with torch.cuda.device(device):
-        per_sm = getattr(lib, fn)(num_centroids, int(bf16))
+        per_sm = getattr(lib, fn)(*args)
     if per_sm < 1:
-        raise RuntimeError(f"{lib_name}: no d8 instance fits an SM at "
-                           f"L={num_centroids}, bf16={bf16}")
+        raise RuntimeError(f"{lib_name}: no instance {fn}{args} fits an SM")
     return per_sm
+
+
+def device_sms(x: torch.Tensor) -> tuple[int, int]:
+    """(device index, SM count) of the card x lies on."""
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return dev, torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def d8_grid(lib_name: str, fn: str, x: torch.Tensor, num_centroids: int,
@@ -99,11 +105,9 @@ def d8_grid(lib_name: str, fn: str, x: torch.Tensor, num_centroids: int,
     instance get the same grid (the fewer resident blocks of the two), so
     that a bf16 x sums in the order of its f32 upcast."""
     p, n, _ = x.shape
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    per_sm = min(d8_occupancy(lib_name, fn, num_centroids, bf16, dev)
-                 for bf16 in (False, True))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dev, sms = device_sms(x)
+    per_sm = min(occupancy(lib_name, fn, dev, num_centroids, bf16)
+                 for bf16 in (0, 1))
     return d8_blocks(p, n, sms, per_sm, tile, min_tiles)
 
 

@@ -6,9 +6,9 @@ is, with no mask: unlike the reference's ``_pad_centroids``, the kernels
 need no padded codebook (``_pad_centroids`` stays for callers that build
 a masked one to test the kernels' mask). Rows need no padding either: the
 CUDA kernels mask their ragged last tile themselves, and ``lloyd_update``
-without weights reads none. ``pq_quantize`` and ``lloyd_update`` read x in
-f32 or bf16 as it comes (on the card, other float dtypes are upcast to
-f32 first).
+without weights reads none. ``kmeans_assign``, ``pq_quantize``,
+``lloyd_update`` and ``scalar_quantize`` read x in f32 or bf16 as it comes,
+with no f32 copy (on the card, other float dtypes are upcast to f32 first).
 
 Every input has a leading problem axis P (clients x codebook groups for
 k-means, clients for scalar quantization and packing): the reference
@@ -54,10 +54,10 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     """Nearest centroid and squared distance of every row.
 
-    x (P, N, D) f32; centroids (P, L, D). Returns (codes (P, N) int32,
-    sqdist (P, N) f32 = max(‖x‖² − best score, 0))."""
-    return kmeans_assign_kernel(x.float().contiguous(),
-                                centroids.float().contiguous())
+    x (P, N, D) f32 or bf16, read as it is (no f32 copy); centroids
+    (P, L, D). Returns (codes (P, N) int32, sqdist (P, N) f32 =
+    max(‖x‖² − best score, 0))."""
+    return kmeans_assign_kernel(_rows(x), centroids.float().contiguous())
 
 
 def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
@@ -85,10 +85,10 @@ def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
                     bits: int):
     """Fused uniform b-bit quantize + dequantize, one range per problem.
 
-    x (P, N) any float dtype; lo and scale (P,). Returns (codes (P, N)
-    int32 in [0, 2^bits), recon (P, N) f32)."""
-    return scalar_quantize_kernel(x.float().contiguous(),
-                                  lo.float().contiguous(),
+    x (P, N) any float dtype, f32 and bf16 read as they are (no f32 copy);
+    lo and scale (P,). Returns (codes (P, N) int32 in [0, 2^bits), recon
+    (P, N) f32)."""
+    return scalar_quantize_kernel(_rows(x), lo.float().contiguous(),
                                   scale.float().contiguous(), bits)
 
 

@@ -137,6 +137,60 @@ def test_scalarq_ranges_are_per_client_and_constant_inputs_exact():
     assert float(comp.residual[0].abs().max()) <= float(scale[0]) / 2 + 1e-6
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_scalarq_bf16_matches_jax(bits):
+    """A bf16 z against the JAX compressor ("jnp") on the same bf16 values:
+    the range (lo, scale) and the codes equal; recon and residual (bf16)
+    within one bf16 rounding (both round lo + codes·scale from f32, XLA
+    through an FMA); and bitwise the port on the f32 upcast, its recon
+    rounded to bf16."""
+    zb = torch.from_numpy(_z(bits)).to(torch.bfloat16)
+    zb[1, 0] = 0.0
+    tc = tC.ScalarQuantCompressor(bits=bits, backend="torch")
+    jc = jC.ScalarQuantCompressor(bits=bits, backend="jnp")
+    comp = tc.compress(zb)
+    assert comp.recon.dtype == torch.bfloat16
+    up = tc.compress(zb.float())
+    assert torch.equal(comp.payload.codes, up.payload.codes)
+    assert torch.equal(comp.payload.lo, up.payload.lo)
+    assert torch.equal(comp.payload.scale, up.payload.scale)
+    assert torch.equal(comp.recon, up.recon.to(torch.bfloat16))
+    for c in range(2):
+        ref = jc.compress(jnp.asarray(zb[c].float().numpy()).astype(
+            jnp.bfloat16))
+        _assert_payload(comp.payload, ref.payload, c)
+        for mine, theirs in ((comp.recon, ref.recon),
+                             (comp.residual, ref.residual)):
+            np.testing.assert_allclose(
+                mine[c].float().numpy(),
+                np.asarray(theirs.astype(jnp.float32)), rtol=2.0 ** -8,
+                atol=1e-6)
+
+
+def test_scalarq_kernel_path_gets_z_unconverted(monkeypatch):
+    """On the kernel path ("cuda", or "auto" on a CUDA tensor) compress
+    hands ops.scalar_quantize a view of z itself (a bf16 z stays bf16, no
+    f32 copy), with an f32 range."""
+    seen = {}
+
+    def record(x, lo, scale, bits):
+        seen.update(x=x, lo=lo, scale=scale)
+        return tC.ref.scalar_quantize_ref(x, lo, scale, bits)
+
+    monkeypatch.setattr(tC._km, "resolve_backend", lambda name, dev: "cuda")
+    monkeypatch.setattr(tC._km, "_require_cuda", lambda z: None)
+    monkeypatch.setattr(tC.ops, "scalar_quantize", record)
+    zb = torch.from_numpy(_z(5)).to(torch.bfloat16)
+    comp = tC.ScalarQuantCompressor(bits=8).compress(zb)
+    assert seen["x"].dtype == torch.bfloat16
+    assert seen["x"].data_ptr() == zb.data_ptr()
+    assert seen["x"].shape == (2, zb[0].numel())
+    assert seen["lo"].dtype == seen["scale"].dtype == torch.float32
+    ref = tC.ScalarQuantCompressor(bits=8, backend="torch").compress(zb)
+    assert torch.equal(comp.recon, ref.recon)
+    assert torch.equal(comp.payload.codes, ref.payload.codes)
+
+
 def test_spec_parser_and_registry_match_jax():
     assert tC.available_compressors() == jC.available_compressors()
     assert isinstance(tC.make_compressor("none"), tC.NoneCompressor)

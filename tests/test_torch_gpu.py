@@ -14,11 +14,14 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_route
-from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
+from repro_torch.kernels.kmeans_assign import (assign_route,
+                                               kmeans_assign_kernel)
 from repro_torch.kernels.lloyd_update import (lloyd_layout,
                                               lloyd_update_in_kernel_order,
                                               lloyd_update_kernel, row_route)
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+from repro_torch.kernels.scalar_quant import (scalar_quantize_kernel,
+                                              scalar_route)
 
 
 def _cuda_or_skip():
@@ -42,6 +45,16 @@ LLOYD_CASES = [("d8", 8, 8, True), ("d8", 8, 16, False), ("d8", 8, 2, False),
 
 def _codebook(c, masked):
     return ops._pad_centroids(c) if masked else (c, None)
+
+
+def _misaligned(x):
+    """A contiguous copy of x one element off a 16-byte boundary: the same
+    values, on the fallback routes."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
 
 
 @pytest.mark.gpu
@@ -135,18 +148,20 @@ def test_pq_quantize_kernel_matches_plain_on_card(route, d, l, masked,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l", [2, 3, 16])
-def test_three_kernels_pick_the_same_codes_on_card(l):
+def test_three_kernels_pick_the_same_codes_on_card(l, dtype):
     """kmeans_assign, pq_quantize and lloyd_update give every row the same
-    code, near-ties included (rows placed midway between two centroids):
-    lloyd_update's code of a row is read from the counts of a problem of
-    that one row."""
+    code, near-ties included (rows placed midway between two centroids),
+    on d8 (L = 2, 16) and generic (L = 3), in f32 and bf16: lloyd_update's
+    code of a row is read from the counts of a problem of that one row."""
     dev = _cuda_or_skip()
     x, c = _inputs(26, dev, 1, 2000, 8, l)
     r = np.random.default_rng(27)
     a, b = r.integers(0, l, 2000), r.integers(0, l, 2000)
     mid = (c[0, a] + c[0, b]) / 2
     x[0, 1000:] = mid[1000:] + 1e-7 * x[0, 1000:]
+    x = x.to(dtype)
     codes_a, _ = ops.kmeans_assign(x, c)
     _, _, codes_q = ops.pq_quantize(x, c)
     rows = x[0].reshape(2000, 1, 8).contiguous()
@@ -203,38 +218,172 @@ def test_fixed_points_exact_on_card(l):
     assert float(cnt[:, -1].abs().max()) == 0.0
 
 
+# (route, D, L, masked): d8 takes no mask; masked pads a codebook of L to 8
+ASSIGN_CASES = [("d8", 8, 2, False), ("d8", 8, 16, False),
+                ("generic", 8, 3, True), ("generic", 8, 3, False),
+                ("generic", 16, 5, False)]
+
+
 @pytest.mark.gpu
-def test_kmeans_assign_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,d,l,masked", ASSIGN_CASES)
+def test_kmeans_assign_kernel_matches_plain_on_card(route, d, l, masked,
+                                                    dtype):
     """Codes equal but for near-ties; squared distances within
-    1e-5·(1 + ‖x‖²) (ragged N, L=3 unmasked, and masked in a codebook
-    padded to 8)."""
+    1e-5·(1 + ‖x‖²); a bf16 x gives bitwise its f32 upcast's codes and
+    distances (ragged N)."""
     dev = _cuda_or_skip()
-    x, c = _inputs(23, dev, 4, 3001, 8, 3)
-    cp, lmask = ops._pad_centroids(c)
-    for codes, sq in (ops.kmeans_assign(x, c),
-                      kmeans_assign_kernel(x, cp, lmask)):
-        codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
-        ties = ref.near_ties(x, cp, lmask)
-        assert codes.dtype == torch.int32 and int(codes.max()) <= 2
-        assert not bool(((codes != codes_r) & ~ties).any())
-        tol = 1e-5 * (1 + x.square().sum(-1))
-        assert bool(((sq - sq_r).abs() <= tol).all())
+    x, c = _inputs(23, dev, 4, 3001, d, l)
+    x = x.to(dtype)
+    cp, lmask = _codebook(c, masked)
+    assert assign_route(x, cp.shape[1], lmask) == route
+    codes, sq = kmeans_assign_kernel(x, cp, lmask)
+    codes_r, sq_r = ref.kmeans_assign_ref(x, cp, lmask)
+    ties = ref.near_ties(x, cp, lmask)
+    assert codes.dtype == torch.int32 and int(codes.max()) < l
+    assert not bool(((codes != codes_r) & ~ties).any())
+    tol = 1e-5 * (1 + x.float().square().sum(-1))
+    assert bool(((sq - sq_r).abs() <= tol).all())
+    codes_f, sq_f = kmeans_assign_kernel(x.float(), cp, lmask)
+    assert torch.equal(codes, codes_f) and torch.equal(sq, sq_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [2, 16])
+def test_kmeans_assign_routes_agree_bitwise_on_card(l, dtype):
+    """Where both routes apply, d8 and generic give the same codes and
+    distances bit for bit: generic through an all-valid mask, and through a
+    misaligned copy of x (ragged N, near-ties included)."""
+    dev = _cuda_or_skip()
+    x, c = _inputs(33, dev, 3, 2001, 8, l)
+    x[:, 1000:] = (c[:, :1] + c[:, 1:2]) / 2 + 1e-7 * x[:, 1000:]
+    x = x.to(dtype)
+    assert assign_route(x, l, None) == "d8"
+    codes, sq = kmeans_assign_kernel(x, c)
+    for other in (kmeans_assign_kernel(x, c, torch.ones(l, device=dev)),
+                  kmeans_assign_kernel(_misaligned(x), c)):
+        assert torch.equal(codes, other[0]) and torch.equal(sq, other[1])
+
+
+@pytest.mark.gpu
+def test_batched_kmeans_bf16_is_its_f32_upcast_on_card():
+    """batched_kmeans on a bf16 x ("auto": 4 lloyd_update launches and one
+    kmeans_assign, all reading bf16) gives bitwise the centroids (rounded
+    to bf16), codes and distortion of the same call on its f32 upcast."""
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    x, _ = _inputs(34, dev, 4, 20001, 8, 16)
+    xb = x.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = km.batched_kmeans(xb, 16, 4, backend="auto")
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"lloyd_update": 4, "kmeans_assign": 1}
+    up = km.batched_kmeans(xb.float(), 16, 4, backend="auto")
+    assert res.centroids.dtype == torch.bfloat16
+    assert torch.equal(res.centroids, up.centroids.to(torch.bfloat16))
+    assert torch.equal(res.codes, up.codes)
+    assert torch.equal(res.distortion, up.distortion)
+
+
+# (route, N): vec needs N a multiple of 4; N = 4097 takes scalar
+SCALAR_CASES = [("vec", 4096), ("scalar", 4097)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", [1, 4, 8, 16])
-def test_scalar_quantize_kernel_is_the_plain_version_on_card(bits):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,n", SCALAR_CASES)
+def test_scalar_quantize_kernel_is_the_plain_version_on_card(route, n, dtype,
+                                                             bits):
     """Codes and recon bitwise those of the plain version (no FMA
-    contraction, half-to-even rounding), per-problem ranges, ragged N."""
+    contraction, half-to-even rounding), per-problem ranges; a bf16 x
+    bitwise its f32 upcast."""
     dev = _cuda_or_skip()
     r = np.random.default_rng(24)
-    x = torch.from_numpy(r.standard_normal((3, 4097)).astype(np.float32))
-    x = x.to(dev)
-    lo = x.amin(-1)
-    scale = (x.amax(-1) - lo) / ((1 << bits) - 1)
+    x = torch.from_numpy(r.standard_normal((3, n)).astype(np.float32))
+    x = x.to(dev, dtype)
+    assert scalar_route(x) == route
+    lo = x.amin(-1).float()
+    scale = (x.amax(-1).float() - lo) / ((1 << bits) - 1)
     codes, recon = ops.scalar_quantize(x, lo, scale, bits)
     codes_r, recon_r = ref.scalar_quantize_ref(x, lo, scale, bits)
     assert torch.equal(codes, codes_r) and torch.equal(recon, recon_r)
+    codes_f, recon_f = ops.scalar_quantize(x.float(), lo, scale, bits)
+    assert torch.equal(codes, codes_f) and torch.equal(recon, recon_f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_quantize_routes_agree_bitwise_on_card(dtype):
+    """vec on x, scalar forced on x and scalar on a misaligned copy of it
+    give the same codes and recon bit for bit."""
+    dev = _cuda_or_skip()
+    r = np.random.default_rng(35)
+    x = torch.from_numpy(r.standard_normal((5, 8192)).astype(np.float32))
+    x = x.to(dev, dtype)
+    lo = x.amin(-1).float()
+    scale = (x.amax(-1).float() - lo) / 255
+    xm = _misaligned(x)
+    assert scalar_route(x) == "vec" and scalar_route(xm) == "scalar"
+    want = scalar_quantize_kernel(x, lo, scale, 8)
+    for got in (scalar_quantize_kernel(x, lo, scale, 8, "scalar"),
+                scalar_quantize_kernel(xm, lo, scale, 8)):
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,n", SCALAR_CASES)
+def test_scalar_quantize_zero_range_and_half_levels_on_card(route, n, dtype):
+    """A problem whose range is zero (scale 1: every code 0, recon its
+    value), values exactly on half-levels (lo + (k + ½)·scale, rounded
+    half to even; below 0, clamped) and values past the top level
+    (clamped): bitwise the plain version."""
+    dev = _cuda_or_skip()
+    half = torch.arange(n, dtype=torch.float32) % 140 - 12.0 + 0.5
+    x = torch.stack([torch.full((n,), 0.75), half,
+                     torch.arange(n, dtype=torch.float32)]).to(dev, dtype)
+    assert torch.equal(x[1].float(), half.to(dev))   # exact in bf16 too
+    lo = torch.tensor([0.75, 0.0, 0.0], device=dev)
+    scale = torch.tensor([1.0, 1.0, 0.5], device=dev)
+    assert scalar_route(x) == route
+    codes, recon = scalar_quantize_kernel(x, lo, scale, 8)
+    codes_r, recon_r = ref.scalar_quantize_ref(x, lo, scale, 8)
+    assert torch.equal(codes, codes_r) and torch.equal(recon, recon_r)
+    assert int(codes[0].abs().max()) == 0
+    assert torch.equal(recon[0], x[0].float())
+    k = half.to(dev)
+    assert torch.equal(codes[1].float(),
+                       torch.round(k).clamp(0, 255))   # half to even
+
+
+@pytest.mark.gpu
+def test_misaligned_views_take_the_fallback_routes_on_card():
+    """Views one element off a 16-byte boundary take kmeans_assign's
+    generic route and scalar_quantize's scalar route (kernels, never the
+    plain versions), bitwise the aligned calls."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    x, c = _inputs(36, dev, 2, 1500, 8, 4)
+    v = x.reshape(3, -1)
+    lo, scale = v.amin(-1), (v.amax(-1) - v.amin(-1)) / 15
+    xm, vm = _misaligned(x), _misaligned(v)
+    assert assign_route(xm, 4, None) == "generic"
+    assert scalar_route(vm) == "scalar"
+    _build.reset_launch_counts()
+    got = kmeans_assign_kernel(xm, c) + scalar_quantize_kernel(vm, lo, scale,
+                                                               4)
+    assert _build.launch_counts() == {"kmeans_assign": 1,
+                                      "scalar_quantize": 1}
+    want = kmeans_assign_kernel(x, c) + scalar_quantize_kernel(v, lo, scale,
+                                                               4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _wire_stream(codes: np.ndarray, bits: int) -> bytes:

@@ -29,17 +29,20 @@ from repro.models.attention import row_block_attention as jrow_block
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import scalar_quant as tsq
 from repro_torch.kernels.flash_attention import (flash_attention_bshd,
                                                  flash_attention_kernel,
                                                  flash_route)
 from repro_torch.models import attention as tattn
-from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
+from repro_torch.kernels.kmeans_assign import (assign_route,
+                                               kmeans_assign_kernel)
 from repro_torch.kernels.lloyd_update import (Layout, d8_blocks,
                                               lloyd_update_in_kernel_order,
                                               lloyd_update_kernel, row_route)
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
+                                              scalar_route,
                                               unpack_codes_kernel)
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -400,6 +403,102 @@ def test_kmeans_assign_matches_jax(n, l):
         assert (np.abs(sq[p].numpy() - np.asarray(sq_k)) <= tol).all()
 
 
+@pytest.mark.parametrize("n,l", [(200, 2), (301, 3), (513, 16)])
+def test_kmeans_assign_bf16_matches_jax(n, l):
+    """A bf16 x against the Pallas kernel (interpret mode) on the same bf16
+    values: codes equal (no near-ties at these inputs), distances within
+    1e-5·(1 + ‖x‖²); and bitwise the port on the f32 upcast."""
+    xb, xf, c = _bf16_inputs(n + 3 * l, 2, n, 8, l)
+    codes, sq = tops.kmeans_assign(xb, _t(c))
+    codes_f, sq_f = tops.kmeans_assign(_t(xf), _t(c))
+    assert torch.equal(codes, codes_f) and torch.equal(sq, sq_f)
+    assert not bool(tref.near_ties(_t(xf), _t(c)).any())
+    for p in range(2):
+        codes_k, sq_k = jops.kmeans_assign(
+            jnp.asarray(xf[p]).astype(jnp.bfloat16), jnp.asarray(c[p]),
+            block_n=64, interpret=True)
+        np.testing.assert_array_equal(codes[p].numpy(), np.asarray(codes_k))
+        tol = 1e-5 * (1 + (xf[p] ** 2).sum(-1))
+        assert (np.abs(sq[p].numpy() - np.asarray(sq_k)) <= tol).all()
+
+
+def test_assign_and_scalar_routes():
+    """kmeans_assign: d8 where no mask is given and row_route says d8,
+    generic for a mask, another D or L, or a misaligned view.
+    scalar_quantize: vec where x's address is a multiple of 4·itemsize and
+    N of 4 (4-value loads), scalar otherwise."""
+    x = torch.zeros(2, 64, 8)
+    assert [assign_route(x, l, None) for l in (2, 4, 8, 16)] == ["d8"] * 4
+    assert assign_route(x, 2, torch.ones(2)) == "generic"
+    assert assign_route(x, 3, None) == "generic"
+    assert assign_route(torch.zeros(2, 64, 16), 4, None) == "generic"
+    view = torch.zeros(2 * 64 * 8 + 1)[1:].view(2, 64, 8)
+    assert assign_route(view, 4, None) == "generic"
+    for dtype, n_vec, n_scalar in ((torch.float32, 4, 6),
+                                   (torch.bfloat16, 12, 6)):
+        assert scalar_route(torch.zeros(3, n_vec, dtype=dtype)) == "vec"
+        assert scalar_route(torch.zeros(3, 18432, dtype=dtype)) == "vec"
+        assert scalar_route(torch.zeros(3, n_scalar, dtype=dtype)) == \
+            "scalar"
+        off = torch.zeros(3 * 16 + 1, dtype=dtype)[1:].view(3, 16)
+        assert off.is_contiguous() and scalar_route(off) == "scalar"
+
+
+def test_scalar_vec_grid_and_forced_route(monkeypatch):
+    """The vec grid is d8_blocks's with tiles of 4·256 values and one tile
+    a block at least, from the occupancy of x's own dtype's instance; a
+    route other than None or "scalar" is refused."""
+    asked = []
+
+    def occupancy(lib_name, fn, dev, bf16):
+        asked.append((lib_name, fn, dev, bf16))
+        return 8
+
+    monkeypatch.setattr(tsq, "occupancy", occupancy)
+    monkeypatch.setattr(tsq, "device_sms", lambda x: (0, 132))
+    assert tsq.VEC_TILE == 1024
+    assert tsq.vec_grid(torch.zeros(10, 18432)) == 18      # 18 tiles
+    assert tsq.vec_grid(torch.zeros(10, 184320)) == 105    # 1056 / 10
+    assert tsq.vec_grid(torch.zeros(4, 1 << 23, dtype=torch.bfloat16)) \
+        == 264
+    assert tsq.vec_grid(torch.zeros(1, 4)) == 1
+    assert [a[3] for a in asked] == [0, 0, 1, 0]
+    assert {a[:3] for a in asked} == {
+        ("scalar_quant", "scalar_quantize_vec_occupancy", 0)}
+    v = torch.zeros(2, 8)
+    lo, scale = torch.zeros(2), torch.ones(2)
+    forced = scalar_quantize_kernel(v, lo, scale, 4, "scalar")
+    plain = tref.scalar_quantize_ref(v, lo, scale, 4)
+    assert all(torch.equal(a, b) for a, b in zip(forced, plain))
+    with pytest.raises(ValueError, match="route"):
+        scalar_quantize_kernel(v, lo, scale, 4, "vec")
+
+
+def test_ops_hand_bf16_to_kmeans_assign_and_scalar_quantize(monkeypatch):
+    """ops.kmeans_assign and ops.scalar_quantize hand a bf16 x to the
+    kernels as it is: the same tensor, no f32 copy."""
+    seen = {}
+
+    def record(name, result):
+        def fn(*args):
+            seen[name] = args
+            return result(*args)
+        return fn
+
+    monkeypatch.setattr(tops, "kmeans_assign_kernel",
+                        record("assign", kmeans_assign_kernel))
+    monkeypatch.setattr(tops, "scalar_quantize_kernel",
+                        record("scalar", scalar_quantize_kernel))
+    x, c = _inputs(37, 2, 50, 8, 3)
+    xb = _t(x).to(torch.bfloat16)
+    tops.kmeans_assign(xb, _t(c))
+    assert seen["assign"][0] is xb and len(seen["assign"]) == 2
+    v = xb.reshape(2, -1)
+    lo, scale = v.amin(-1).float(), torch.full((2,), 0.1)
+    tops.scalar_quantize(v, lo, scale, 8)
+    assert seen["scalar"][0] is v and seen["scalar"][3] == 8
+
+
 # ---------------------------------------------------------------------------
 # scalar_quantize, pack_codes and unpack_codes
 # ---------------------------------------------------------------------------
@@ -438,6 +537,36 @@ def test_scalar_quantize_matches_jax(n, bits):
                                        atol=1e-6)
     assert int(codes.min()) >= 0 and int(codes.max()) <= levels
     np.testing.assert_array_equal(codes[2].numpy(), 0)
+
+
+@pytest.mark.parametrize("n,bits", [(999, 8), (64, 1), (512, 4), (40, 16)])
+def test_scalar_quantize_bf16_matches_jax(n, bits):
+    """A bf16 x against the Pallas kernel (interpret mode) on the same bf16
+    values: codes bitwise; recon bitwise the jnp formula's multiply and
+    then add, each rounded to f32 (numpy), and within 1e-6 of the Pallas
+    kernel's recon (as the f32 test), which XLA's CPU compiler contracts
+    into one FMA: one rounding apart, on values below 4 in magnitude.
+    Codes and recon bitwise the port on the f32 upcast."""
+    x = np.random.default_rng(n + bits).standard_normal((3, n))
+    xb = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    xb[2] = 0.5                                  # a constant row: scale 1
+    xf = xb.float().numpy()
+    lo, scale = _scalar_range(xf, bits)
+    codes, recon = tops.scalar_quantize(xb, _t(lo), _t(scale), bits)
+    codes_f, recon_f = tops.scalar_quantize(_t(xf), _t(lo), _t(scale), bits)
+    assert torch.equal(codes, codes_f) and torch.equal(recon, recon_f)
+    for p in range(3):
+        codes_k, recon_k = jops.scalar_quantize(
+            jnp.asarray(xf[p][None]).astype(jnp.bfloat16),
+            jnp.asarray(lo[p]), jnp.asarray(scale[p]), bits, block_n=64,
+            interpret=True)
+        np.testing.assert_array_equal(codes[p].numpy(),
+                                      np.asarray(codes_k)[0])
+        q = codes[p].numpy().astype(np.float32)
+        np.testing.assert_array_equal(recon[p].numpy(),
+                                      lo[p] + q * scale[p])
+        np.testing.assert_allclose(recon[p].numpy(), np.asarray(recon_k)[0],
+                                   rtol=0, atol=1e-6)
 
 
 def test_scalar_quantize_rounds_half_to_even():

@@ -115,6 +115,32 @@ def test_batched_kmeans_matches_jax(n, l, iters):
                                float(res.distortion[1]), rtol=1e-6)
 
 
+@pytest.mark.parametrize("n,l,iters", [(300, 4, 5), (1000, 16, 3)])
+def test_batched_kmeans_bf16_matches_jax(n, l, iters):
+    """A bf16 x against the JAX package's batched_kmeans ("jnp") on the same
+    bf16 values: codes equal, centroids (bf16, as both return them) within
+    one bf16 rounding of each other (their f32 centroids agree to 1e-5),
+    the distortion within 1e-5 relative; and bitwise the port on the f32
+    upcast, centroids rounded to bf16."""
+    xb = torch.from_numpy(_acts(n + 2 * l, 3, n, 8)).to(torch.bfloat16)
+    res = tkm.batched_kmeans(xb, l, iters, backend="torch")
+    up = tkm.batched_kmeans(xb.float(), l, iters, backend="torch")
+    assert res.centroids.dtype == torch.bfloat16
+    assert torch.equal(res.centroids, up.centroids.to(torch.bfloat16))
+    assert torch.equal(res.codes, up.codes)
+    assert torch.equal(res.distortion, up.distortion)
+    ref = jkm.batched_kmeans(jnp.asarray(xb.float().numpy()).astype(
+        jnp.bfloat16), l, iters, backend="jnp")
+    assert ref.centroids.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(res.codes.numpy(), np.asarray(ref.codes))
+    np.testing.assert_allclose(
+        res.centroids.float().numpy(),
+        np.asarray(ref.centroids.astype(jnp.float32)), rtol=2.0 ** -8,
+        atol=1e-6)
+    np.testing.assert_allclose(res.distortion.numpy(),
+                               np.asarray(ref.distortion), rtol=1e-5)
+
+
 def test_keyed_seeding_is_kmeans_plus_plus():
     """With a generator the seeds are kmeans++ draws: rows of the
     subsample, distinct where the data is, reproducible from the seed,
@@ -173,6 +199,33 @@ def test_cuda_backend_lloyd_pads_nothing_and_builds_no_weights(monkeypatch):
     ref = tkm.batched_lloyd(x, 4, 3, chunk=256, backend="torch")
     assert cents.dtype == torch.float32
     np.testing.assert_allclose(cents.numpy(), ref.numpy(), **TOL)
+
+
+def test_cuda_backend_kmeans_reads_x_as_it_comes(monkeypatch):
+    """On "cuda" batched_kmeans hands every Lloyd update and the final
+    assignment the caller's x itself (a bf16 x stays bf16: no f32 copy);
+    the result is that of the "torch" backend."""
+    seen = []
+    cuda = tkm._REGISTRY["cuda"]
+
+    def update(x, weights, cents):
+        seen.append(("update", x))
+        return tkm._update_torch(x, weights, cents)
+
+    def assign_dist(x, cents):
+        seen.append(("assign", x))
+        return tkm._assign_dist_torch(x, cents)
+
+    monkeypatch.setitem(tkm._REGISTRY, "cuda", cuda._replace(
+        update=update, assign_dist=assign_dist))
+    x = torch.from_numpy(_acts(38, 2, 500, 8)).to(torch.bfloat16)
+    res = tkm.batched_kmeans(x, 4, 3, backend="cuda")
+    assert [kind for kind, _ in seen] == ["update"] * 3 + ["assign"]
+    assert all(t is x for _, t in seen)
+    ref = tkm.batched_kmeans(x, 4, 3, backend="torch")
+    assert torch.equal(res.codes, ref.codes)
+    np.testing.assert_allclose(res.centroids.float().numpy(),
+                               ref.centroids.float().numpy(), rtol=2.0 ** -8)
 
 
 # ---------------------------------------------------------------------------
