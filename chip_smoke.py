@@ -40,6 +40,23 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. payload -- the slice's downlink payload codes packed into 8-bit words
                 and unpacked on the card, against the plain versions and
                 the wire format's LSB-first byte stream;
+  7b. trainer -- the paper's training run as its users drive it
+                (examples/femnist_federated_training.py): FederatedTrainer
+                over 64 clients, cohort 10, the same model and optimizer,
+                through the scheduler, the stacked executor and the wire.
+                The main path (ideal fleet, FullSync, --steps rounds):
+                exact lloyd_update / pq_quantize launch counts over the
+                run, the measured uplink bytes per client equal to the
+                port's pq frame for this geometry, the trace's rounds,
+                participants and bytes, finite losses, round 1 held
+                against the same round run on CPU copies (the plain
+                versions), the round times, the device busy share of a
+                profiled run and the uplink reduction against SplitFed.
+                The weighted path (mobile fleet, AsyncBuffer(4), the chain
+                downlink, warm start, --steps flushes): make_weighted_step,
+                the per-client cut state and scalar_quantize, with exact
+                launch counts and the same trace from both scheduler
+                backends;
   8. serve   -- split serving of Llama-3 8B at full width (32 layers,
                 d = 4096, 32/8 heads, vocab 128256, bf16, random weights
                 from --seed): the prefill of 4 prompts of 2048 tokens with
@@ -148,6 +165,15 @@ DSUM_RTOL = 2e-5
 SQDIST_RTOL = 1e-5    # of (1 + ‖x‖²)
 # step-1 losses of a kernel step and a plain step from the same inputs
 LOSS_ATOL = 1e-4
+# the trainer's first round or flush on the card against the same one on
+# CPU copies (the plain versions): the update (state after − before) within
+# UPDATE_RTOL in L2, on the client's and the server's parameters each. A code
+# flip at a near-tie, or a downlink value rounded to the other level, moves
+# a few entries; a client missing from a flush of 4, or its weight off by
+# 10 %, moves the update by more than 2 %
+UPDATE_RTOL = 1e-2
+# and the mean PQ distortion within this of the CPU copies' (relative)
+TRAIN_DIST_RTOL = 1e-4
 # the warm step 2 of slice 2, from the same inputs: its 2 Lloyd iterations
 # sum in another order on the two paths, so the codebooks differ by ~1e-4
 # and a subvector near the boundary of two centroids may take the other
@@ -690,6 +716,15 @@ def phase_parity(gen):
     say("parity", "lloyd_update main: two runs bitwise identical; no "
         "weights bitwise all-ones weights")
     pq_err, *_ = check_pq("main", x, c)
+    # the weighted path's call: one client's problem (P = 1, where d8 gives
+    # a problem the most blocks and partials) from a warm codebook, one
+    # Lloyd step past c as a client's codebook of the previous round is
+    x1, w1 = x[:1], ones[:1]
+    ds1, cnt1 = ref.lloyd_update_ref(x1, w1, c[:1])
+    warm = c[:1] + ds1 / cnt1.clamp_min(1).unsqueeze(-1)
+    lloyd_err = max(lloyd_err, check_lloyd("one client, warm", x1, warm,
+                                           None, w1)[0])
+    pq_err = max(pq_err, check_pq("one client, warm", x1, warm)[0])
     # PR 14's call of the same step: rows padded to the 4096-row chunk with
     # weight 0, L = 2 padded to 8 and masked
     xp_ = torch.nn.functional.pad(x, (0, 0, 0, M_PAD - M))
@@ -817,6 +852,9 @@ def phase_scalar_parity(gen):
     def normal(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
+    # the weighted path's call: one client's carrier (P = 1)
+    check_scalar("chain carrier, one client float32",
+                 normal(1, DL_KEPT) * 1e-3, DL_BITS)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         check_scalar(f"chain carrier {name}",
@@ -1144,6 +1182,269 @@ def phase_slice2(seed, steps):
             st, m = step(st, b, c)
             c = m.pop("cut_state")
     return counts, run3, model, batches[0]
+
+
+def trainer_counts_want(trace, cold_flushes=1):
+    """The kernel launches a weighted-path run makes: the wire measurement
+    (one cold PQ compress, one chain compress), then per participant of
+    each flush one PQ compress (cold in the first flush, when no client
+    has a codebook yet; warm, seeded, after) and one downlink chain."""
+    clients = [len(r.participants) for r in trace]
+    cold = sum(clients[:cold_flushes])
+    warm = sum(clients[cold_flushes:])
+    return {"lloyd_update": ITERS + ITERS * cold + WARM_ITERS * warm,
+            "pq_quantize": 1 + cold + warm,
+            "scalar_quantize": 1 + cold + warm}
+
+
+def make_trainer(dev, gen, state=None, backend="auto", **kw):
+    """The example's trainer (examples/femnist_federated_training.py:
+    64 clients, cohort 10, client_batch 20, FemnistCNN(pq=PQConfig(1152, 2,
+    kmeans_iters=5), lam=1e-4), sgd(10**-1.5)) on ``dev``; ``state`` (a
+    state dict) replaces the model's random weights, ``backend`` is the
+    PQ backend ("torch": the plain versions)."""
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.federated import FederatedTrainer
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    data = make_federated_image_data(num_clients=64, seed=0, device=dev)
+    pq = PQConfig(num_subvectors=Q, num_clusters=L, kmeans_iters=ITERS,
+                  backend=backend)
+    model = FemnistCNN(pq=pq, lam=LAM, client_batch=CLIENT_BATCH,
+                       device=dev, generator=gen)
+    if state is not None:
+        model.load_state_dict(state)
+    return FederatedTrainer(model, sgd(LR), data, cohort=CLIENTS,
+                            client_batch=CLIENT_BATCH, device=dev, **kw)
+
+
+def same_records(a, b) -> bool:
+    """Two traces' records equal in every field but the metrics (times,
+    participants, dropped, bytes, ledger), and their flight frames equal."""
+    def fields(trace):
+        return [{**r.__dict__, "metrics": None} for r in trace]
+    return fields(a) == fields(b) and a.flights == b.flights
+
+
+def update_gaps(before, card, cpu):
+    """The card's update (card − before) against the CPU copies' (cpu −
+    before): relative L2 gap over the client's and the server's parameters
+    each, and the max |card − cpu|."""
+    gaps, worst = {}, 0.0
+    for part in ("client", "server"):
+        keys = [k for k in before if k.startswith(part + ".")]
+        d_cpu = torch.cat([(cpu[k].detach().float() - before[k]).reshape(-1)
+                           for k in keys])
+        d_card = torch.cat([(card[k].detach().float().cpu() - before[k])
+                            .reshape(-1) for k in keys])
+        gaps[part] = float((d_card - d_cpu).norm() / d_cpu.norm())
+        worst = max(worst, float((d_card - d_cpu).abs().max()))
+    return gaps, worst
+
+
+def hold_to_cpu(tag, weights, card, cpu, seed):
+    """Run round (flush) 1 of the trainers ``card`` and ``cpu``, both built
+    from ``weights``, and hold the card's loss, distortion, update and
+    trace record to the CPU copies'. Returns the two traces."""
+    from repro_torch.kernels import _build
+
+    s_card, h_card = card.run(1, seed)
+    torch.cuda.synchronize()
+    seen = _build.launch_counts()
+    s_cpu, h_cpu = cpu.run(1, seed)
+    if _build.launch_counts() != seen:
+        fail(f"{tag}: the CPU comparison launched a kernel")
+    dloss = abs(h_cpu[0]["loss"] - h_card[0]["loss"])
+    dist, dist_cpu = h_card[0]["pq_distortion"], h_cpu[0]["pq_distortion"]
+    ddist = abs(dist - dist_cpu) / abs(dist_cpu)
+    gaps, worst = update_gaps(weights, s_card.params, s_cpu.params)
+    same = same_records(card.last_trace, cpu.last_trace)
+    say("trainer", f"{tag} vs CPU copies (plain versions): loss "
+        f"{h_card[0]['loss']:.6f} vs {h_cpu[0]['loss']:.6f} (|Δ| "
+        f"{dloss:.3e}); distortion {dist:.4f} vs {dist_cpu:.4f} (relative "
+        f"{ddist:.3e}); update gap in L2: client {gaps['client']:.3e}, "
+        f"server {gaps['server']:.3e}; max |Δparam| {worst:.3e}; trace "
+        f"record equal: {same}")
+    if not dloss <= LOSS_ATOL:
+        fail(f"{tag}: loss differs from the CPU copies' by {dloss}")
+    if not ddist <= TRAIN_DIST_RTOL:
+        fail(f"{tag}: distortion differs from the CPU copies' by {ddist} "
+             f"(relative)")
+    if not max(gaps.values()) <= UPDATE_RTOL:
+        fail(f"{tag}: the update differs from the CPU copies' by {gaps} "
+             f"(relative L2)")
+    if not same:
+        fail(f"{tag}: the trace record differs from the CPU copies'")
+    return card.last_trace, cpu.last_trace
+
+
+def phase_trainer(seed, rounds, dev="cuda"):
+    """The FEMNIST training run through FederatedTrainer: the main path
+    (FullSync) and the weighted path (AsyncBuffer). Returns each path's
+    launch counts and a function that runs 3 main-path rounds."""
+    from repro_torch.federated import AsyncBuffer, mobile_fleet, wire
+    from repro_torch.kernels import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    trainer = make_trainer(dev, gen)
+    weights = {k: v.detach().cpu().clone()       # the CPU check's copy
+               for k, v in trainer.model.state_dict().items()}
+    say("trainer", f"FederatedTrainer: 64 clients, cohort {CLIENTS} x "
+        f"{CLIENT_BATCH}, FemnistCNN d={CUT_D}, PQ q={Q} L={L} "
+        f"iters={ITERS}, λ={LAM}, sgd({LR:.5f}); main path: ideal fleet, "
+        f"FullSync, executor {trainer.executor.name}, {rounds} rounds")
+
+    marks = []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def on_round(rd, cursor):
+        torch.cuda.synchronize()     # a round's end, on the host clock
+        marks.append(time.perf_counter())
+    state, hist = trainer.run(rounds, seed, on_round=on_round)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    want = {"lloyd_update": ITERS * (rounds + 1), "pq_quantize": rounds + 1}
+    say("trainer", f"launches in run({rounds}): {counts} (want {want}: "
+        f"{rounds} rounds and the wire measurement's compress)")
+    if counts != want:
+        fail(f"trainer launch counts {counts} != {want}")
+    trace = trainer.last_trace
+    cfg = trainer.uplink.cfg
+    frame = wire.wire_bits(cfg, CLIENT_BATCH, CUT_D) // 8
+    up = trace.meta["uplink_bytes_per_client"]
+    down = trace.meta["downlink_bytes_per_client"]
+    dense = CLIENT_BATCH * CUT_D * 4
+    say("trainer", f"uplink {up} B per client ({trace.meta['uplink_wire_kind']}"
+        f" frame; the port's pq frame for n={CLIENT_BATCH} d={CUT_D} is "
+        f"{frame} B), downlink {down} B ({trace.meta['downlink_wire_kind']})")
+    if up != frame or trace.meta["uplink_wire_kind"] != "pq":
+        fail(f"uplink bytes {up} != the pq frame's {frame}")
+    if down != dense:
+        fail(f"downlink bytes {down} != the dense cut's {dense}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != rounds or not all(np.isfinite(losses)):
+        fail(f"history: {len(hist)} rounds, losses {losses}")
+    if len(trace) != rounds or any(
+            len(r.participants) != CLIENTS or r.dropped
+            or r.uplink_bytes != CLIENTS * frame
+            or r.downlink_bytes != CLIENTS * dense
+            or r.ledger != {"uplink/pq": CLIENTS * frame,
+                            "downlink/dense": CLIENTS * dense}
+            for r in trace):
+        fail("trace: " + str([(len(r.participants), r.dropped,
+                                r.uplink_bytes, r.downlink_bytes)
+                               for r in trace]))
+    if not all(bool(torch.isfinite(p).all()) for p in state.params.values()):
+        fail("non-finite parameters after the run")
+    say("trainer", f"{len(trace)} rounds of {CLIENTS} participants, 0 "
+        f"dropped, {trace.total_uplink_bytes} B up, "
+        f"{trace.total_downlink_bytes} B down, simulated "
+        f"{trace.simulated_seconds:.1f} s; losses: "
+        + " ".join(f"{v:.5f}" for v in losses))
+
+    # round 1 again from the same weights, on the card (a run of its own,
+    # whose state is the state after round 1) and on CPU copies of the
+    # weights and the data (the plain versions): the same batches (numpy
+    # draws), the same cohort
+    card1, cpu1 = hold_to_cpu(
+        "round 1", weights,
+        make_trainer(dev, torch.Generator().manual_seed(seed),
+                     state=weights),
+        make_trainer("cpu", torch.Generator().manual_seed(seed),
+                     state=weights, backend="torch"), seed)
+    if not same_records(card1, type(trace)(records=trace.records[:1],
+                                           flights=trace.flights[:1])):
+        fail("round 1 of run(1) differs from round 1 of the run")
+    if cpu1.meta != trace.meta:
+        fail("the CPU copies' measured bytes differ")
+
+    per_round = np.diff([t0] + marks) * 1e3
+    steady = per_round[1:]
+    say("times", f"trainer round (FullSync, cohort {CLIENTS}): median "
+        f"{statistics.median(steady):.3f} ms (min {steady.min():.3f}, max "
+        f"{steady.max():.3f}) over rounds 2..{rounds}; round 1 (with the "
+        f"wire measurement) {per_round[0]:.3f} ms; run({rounds}) "
+        f"{run_s * 1e3:.1f} ms (host clock + synchronize)")
+    dense_acts = trainer.measure_dense_bytes(state)
+    client_bytes = sum(p.numel() * p.element_size()
+                       for k, p in state.params.items()
+                       if k.startswith("client."))
+    say("trainer", f"uplink per client and round: activations {dense_acts} B "
+        f"dense (SplitFed) vs {up} B pq frame (FedLite): "
+        f"{dense_acts / up:.1f}x measured on the wire; with the client "
+        f"model's {client_bytes} B: {(dense_acts + client_bytes) / (up + client_bytes):.1f}x; "
+        f"analytic at φ=32: {cfg.compression_ratio(CLIENT_BATCH, CUT_D, 32):.1f}x")
+
+    # the weighted path: AsyncBuffer flushes through make_weighted_step
+    traces = {}
+    for backend in ("heapq", "vector"):
+        wt = make_trainer(dev, torch.Generator().manual_seed(seed),
+                          fleet=mobile_fleet(64, flaky_fraction=0.3, seed=0),
+                          policy=AsyncBuffer(4), downlink_compressor=DOWNLINK,
+                          warm_start=True, scheduler_backend=backend)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t1 = time.perf_counter()
+        _, whist = wt.run(rounds, seed)
+        torch.cuda.synchronize()
+        w_s = time.perf_counter() - t1
+        wcounts = _build.launch_counts()
+        traces[backend] = wt.last_trace
+        wwant = trainer_counts_want(wt.last_trace)
+        wl = [h["loss"] for h in whist]
+        say("trainer", f"weighted path ({backend}): mobile fleet, "
+            f"AsyncBuffer(4), downlink {wt.downlink.spec}, warm start: "
+            f"{len(whist)} flushes of "
+            f"{[len(r.participants) for r in wt.last_trace]} clients, "
+            f"launches {wcounts} (want {wwant}), run {w_s * 1e3:.1f} ms; "
+            f"losses " + " ".join(f"{v:.4f}" for v in wl))
+        if wcounts != wwant:
+            fail(f"weighted-path launch counts {wcounts} != {wwant}")
+        if len(whist) != rounds or not all(np.isfinite(wl)) or not all(
+                np.isfinite(h["mean_staleness_weight"]) for h in whist):
+            fail(f"weighted path: {len(whist)} flushes, losses {wl}")
+        if wt.last_trace.meta["downlink_wire_kind"] != "sparse" or \
+                len(wt._client_q) == 0:
+            fail("weighted path: no chain downlink or per-client state")
+        weighted_counts = wcounts
+    if not same_records(traces["heapq"], traces["vector"]):
+        fail("the heapq and vector backends' traces differ")
+    say("trainer", f"weighted path: the heapq and vector traces are equal "
+        f"({len(traces['vector'])} records, "
+        f"{traces['vector'].simulated_seconds:.3f} simulated s, "
+        f"{traces['vector'].total_dropped} dropped)")
+    # flush 1 (make_weighted_step at P = 1 per client, the chain downlink's
+    # scalar_quantize) held to CPU copies, the downlink's plain version too
+    weighted = dict(fleet=mobile_fleet(64, flaky_fraction=0.3, seed=0),
+                    policy=AsyncBuffer(4), warm_start=True)
+    card1, _ = hold_to_cpu(
+        "weighted flush 1", weights,
+        make_trainer(dev, torch.Generator().manual_seed(seed), state=weights,
+                     downlink_compressor=DOWNLINK, **weighted),
+        make_trainer("cpu", torch.Generator().manual_seed(seed),
+                     state=weights, backend="torch",
+                     downlink_compressor=DOWNLINK_PLAIN, **weighted), seed)
+    if not same_records(card1, type(card1)(
+            records=traces["vector"].records[:1],
+            flights=traces["vector"].flights[:1])):
+        fail("flush 1 of run(1) differs from flush 1 of the run")
+
+    def steady_rounds(begin):
+        # rounds 2-4 of run(4): the window opens after round 1, so the wire
+        # measurement before round 1 stays out of it; the end of the run
+        # (its one metrics transfer) is in it
+        def on_round(rd, cursor):
+            if rd == 0:
+                begin()
+        trainer.run(4, seed, on_round=on_round)
+    return counts, weighted_counts, steady_rounds
 
 
 def phase_payload(model, batch):
@@ -1560,18 +1861,28 @@ def phase_serve_path(seed, prompt):
     torch.cuda.empty_cache()
 
 
-def phase_profile(tag, run, n=3, unit="step"):
+def phase_profile(tag, run, n=3, unit="step", opens=False):
     """Device busy share: CUDA kernel time over wall time in a profiled
-    window of ``n`` units (``run`` runs them). Returns the device time of
-    each kernel in ms per unit (empty where the profiler saw no device)."""
+    window of ``n`` units. The window is all of ``run()``, or, with
+    ``opens``, ``run(begin)`` from where it calls ``begin()`` to its end.
+    Returns the device time of each kernel in ms per unit (empty where the
+    profiler saw no device)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    opened = []
+
+    def begin():
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.start()
+        opened.append(time.perf_counter())
+    if opens:
+        run(begin)
+    else:
+        begin()
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - opened[0]) * 1e3
+    prof.stop()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -1811,8 +2122,8 @@ def time_assign_scalar(gen, counts, errs, assign_counts):
     time, the
     bound, the share of it reached (not for shapes that fit in the 50 MB L2:
     those are L2-resident) and the launches per path. Returns their two
-    entries of the kernels line (at the FEMNIST grouping and the chain's
-    carrier, the main paths' own calls)."""
+    entries of the kernels line (at the FEMNIST grouping and one client's
+    chain carrier, the calls of the paths their launches are counted on)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.kmeans_assign import (assign_route,
                                                    kmeans_assign_kernel)
@@ -1894,9 +2205,13 @@ def time_assign_scalar(gen, counts, errs, assign_counts):
     # scalar_quantize at b = 8: the chain's carrier and the standalone
     # downlink (f32), a Llama-3 8B cut's gradient (bf16, f32)
     for shape, (p, n, dtype, launches) in (
-            ("chain carrier", (CLIENTS, DL_KEPT, torch.float32,
-                               f"{counts.get('scalar_quantize', 0)} in the "
-                               f"slice-2 run (1 per step)")),
+            ("chain carrier, one client", (
+                1, DL_KEPT, torch.float32,
+                f"{counts.get('scalar_quantize', 0)} in the trainer's "
+                f"weighted run (1 per contribution and 1 in the wire "
+                f"measurement, each on one client's carrier)")),
+            ("chain carrier, stacked cohort", (
+                CLIENTS, DL_KEPT, torch.float32, "1 per slice-2 step")),
             ("standalone downlink", (CLIENTS, DL_TOTAL, torch.float32,
                                      "1 per payload")),
             ("Llama-3 8B cut gradient", (SERVE_B, 4096 * SERVE_P,
@@ -1979,6 +2294,13 @@ def main(argv=None) -> int:
     counts.update(pack_codes=payload["pack_codes"],
                   unpack_codes=payload["unpack_codes"])
     del model, batch
+    # the trainer: lloyd_update's and pq_quantize's launches on the main
+    # path (FullSync), scalar_quantize's on the weighted path
+    main_counts, weighted_counts, rounds = phase_trainer(args.seed,
+                                                        args.steps)
+    phase_profile("trainer", rounds, unit="round", opens=True)
+    counts.update(main_counts)
+    counts["scalar_quantize"] = weighted_counts["scalar_quantize"]
     torch.cuda.empty_cache()
     # the serve prefill: flash_attention's launches, and the PQ kernels at
     # their largest shape (4 problems of 1048576 x 8, L = 16), held on the

@@ -22,7 +22,8 @@ top-k keeps k of each client's entries, a scalarq range is each client's
 Every compressor answers: ``compress(z) -> Compressed`` (recon, residual,
 payload) and ``analytic_bits(n, d, phi)`` (per client, composed from
 ``overhead_bits`` and ``carrier_elems`` so that chains add up exactly).
-``wire_payload`` (the tagged wire codec) waits for ROADMAP A9 and raises.
+``wire_payload(comp, client=c)`` serializes client c's message with the
+tagged wire codec (``federated/wire.py``), byte for byte the reference's.
 
 Direction hooks, each a ``torch.autograd.Function``:
 
@@ -164,11 +165,14 @@ class CutCompressor:
             + self.carrier_elems(n, d) * phi_bits
 
     # ---- wire -------------------------------------------------------------
-    def wire_payload(self, comp: Compressed,
-                     value_dtype: str = "float16") -> bytes:
-        raise NotImplementedError(
-            "the tagged wire codec (federated/wire.py) is not ported yet "
-            "(ROADMAP A9)")
+    def wire_payload(self, comp: Compressed, value_dtype: str = "float16",
+                     *, client: Optional[int] = None) -> bytes:
+        """Serialize one client's message to the tagged wire format
+        (``federated/wire.py``): the frame the reference writes for that
+        client's tensor. A result of several clients needs ``client=``."""
+        from repro_torch.federated import wire  # federated imports core
+        return wire.encode_compressed(self, comp, value_dtype=value_dtype,
+                                      client=client)
 
 
 # ---------------------------------------------------------------------------

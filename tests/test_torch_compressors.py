@@ -238,9 +238,15 @@ def test_error_feedback_matches_jax_and_telescopes():
 
 
 def test_wire_payload_waits_for_the_wire_port():
+    """The wire port has landed: ``wire_payload`` of each client is the
+    reference's frame of that client's tensor, byte for byte."""
     c = tC.make_compressor("topk(k=0.1)")
-    with pytest.raises(NotImplementedError, match="A9"):
-        c.wire_payload(c.compress(torch.from_numpy(_z(4))))
+    jc = jC.make_compressor("topk(k=0.1)")
+    z = _z(4)
+    comp = c.compress(torch.from_numpy(z))
+    for client in range(z.shape[0]):
+        assert c.wire_payload(comp, client=client) == \
+            jc.wire_payload(jc.compress(jnp.asarray(z[client])))
 
 
 # ---------------------------------------------------------------------------

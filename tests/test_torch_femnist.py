@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import compressors as jC
 from repro.core.fedlite import make_train_step as j_make_train_step
 from repro.core.fedlite import TrainState as JTrainState
 from repro.core.quantizer import PQConfig as JPQConfig
@@ -22,6 +23,7 @@ from repro_torch.core.compressors import CutState
 from repro_torch.core.fedlite import TrainState, make_train_step
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.data.synthetic import make_federated_image_data
+from repro_torch.federated import FederatedTrainer
 from repro_torch.models.paper_models import FemnistCNN, from_jax_params
 from repro_torch.optim import sgd
 
@@ -173,15 +175,23 @@ def test_per_client_split_condition_matches_reference():
 
 
 def test_unported_options_raise():
-    """What still raises: the wire codec (ROADMAP A9), and a cut state with
-    microbatches, which the reference refuses too. The downlink, step keys
-    and cut state themselves run."""
+    """What still raises: the mesh executor (ROADMAP A13), and a cut state
+    with microbatches, which the reference refuses too. The downlink's wire
+    payload is the reference's frame, and the downlink, step keys and cut
+    state themselves run."""
     tm = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=2), lam=1e-4,
                     downlink_compressor="topk(k=0.1)", device=CPU)
     assert tm.downlink_compressor.spec == "topk(k=0.1)"
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.downlink_compressor.wire_payload(
-            tm.downlink_compressor.compress(torch.ones((1, 2, 8))))
+    z = np.arange(16, dtype=np.float32).reshape(1, 2, 8) % 5
+    jdl = JFemnistCNN(downlink_compressor=jC.make_compressor(
+        "topk(k=0.1)")).downlink_compressor
+    assert tm.downlink_compressor.wire_payload(
+        tm.downlink_compressor.compress(torch.from_numpy(z))) == \
+        jdl.wire_payload(jdl.compress(jnp.asarray(z[0])))
+    data = make_federated_image_data(num_clients=8, seed=0, device=CPU)
+    with pytest.raises(NotImplementedError, match="A13"):
+        FederatedTrainer(tm, sgd(LR), data, cohort=2, client_batch=4,
+                         device=CPU, executor="mesh")
     b = _torch_batch(_jax_batch(0, 4))
     state = TrainState.create(dict(tm.named_parameters()), sgd(LR))
     with pytest.raises(ValueError, match="microbatches"):

@@ -505,3 +505,95 @@ def test_smoke_prefill_launch_counts_on_card():
         torch.cuda.synchronize()
         assert _build.launch_counts() == {}
         assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the federated layer on the card
+# ---------------------------------------------------------------------------
+
+def _card_trainer(dev, **kw):
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.federated import FederatedTrainer
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    data = make_federated_image_data(num_clients=8, seed=0, device=dev)
+    model = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=3), lam=1e-4,
+                       client_batch=4, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    return FederatedTrainer(model, sgd(10 ** -1.5), data, cohort=3,
+                            client_batch=4, **kw)
+
+
+@pytest.mark.gpu
+def test_short_trainer_run_on_card():
+    """Two FullSync rounds through the trainer on the card (its default
+    device): the kernels launch, the losses are finite, and the measured
+    uplink is the pq frame of one client's 4 x 9216 cut."""
+    from repro_torch.federated import wire
+    from repro_torch.kernels import _build
+
+    _cuda_or_skip()
+    tr = _card_trainer("cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    state, hist = tr.run(2, 0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"lloyd_update": 3 * 3,
+                                      "pq_quantize": 3}
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert tr.last_trace.meta["uplink_bytes_per_client"] == \
+        wire.wire_bits(tr.uplink.cfg, 4, 9216) // 8
+    assert all(p.is_cuda for p in state.params.values())
+
+
+@pytest.mark.gpu
+def test_wire_fed_by_codes_on_card():
+    """Codes and codebooks that live on the card encode to the bytes of
+    their host copies, for a pq batch of several clients and a chain."""
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.quantizer import PQConfig, QuantizedBatch, quantize
+    from repro_torch.federated import wire
+
+    dev = _cuda_or_skip()
+    z = torch.randn((3, 24, 64), generator=torch.Generator().manual_seed(1))
+    qb = quantize(z.to(dev), PQConfig(8, 5, kmeans_iters=3))
+    host = QuantizedBatch(*(x.cpu() for x in qb))
+    for c in range(3):
+        for dtype in ("float16", "float32", "bfloat16"):
+            assert wire.encode_bytes(qb, dtype, client=c) == \
+                wire.encode_bytes(host, dtype, client=c)
+    chain = make_compressor("chain:topk(k=0.1)+scalarq(bits=8)")
+    comp = chain.compress(z.to(dev))
+    payload = chain.wire_payload(comp, client=2)
+    dec = wire.decode_payload(payload)
+    assert dec.kind == "sparse" and dec.inner.kind == "scalar"
+    np.testing.assert_allclose(wire.reconstruct(dec),
+                               comp.recon[2].cpu().numpy(), rtol=0,
+                               atol=float(comp.payload[1].scale[2]) * 0.5)
+
+
+@pytest.mark.gpu
+def test_scheduler_backends_agree_on_a_card_run():
+    """The weighted path on the card (mobile fleet, AsyncBuffer, chain
+    downlink, warm start) gives the same trace under both scheduler
+    backends."""
+    from repro_torch.federated import AsyncBuffer, mobile_fleet
+
+    _cuda_or_skip()
+    traces = []
+    for backend in ("heapq", "vector"):
+        tr = _card_trainer(
+            "cuda", fleet=mobile_fleet(8, flaky_fraction=0.3, seed=0),
+            policy=AsyncBuffer(2),
+            downlink_compressor="chain:topk(k=0.1)+scalarq(bits=8)",
+            warm_start=True, scheduler_backend=backend)
+        _, hist = tr.run(3, 0)
+        assert all(np.isfinite(h["loss"]) for h in hist)
+        traces.append(tr.last_trace)
+    a, b = traces
+    assert [{**r.__dict__, "metrics": None} for r in a] == \
+        [{**r.__dict__, "metrics": None} for r in b]
+    assert len(a.flights) == len(b.flights)
+    assert all(x == y for x, y in zip(a.flights, b.flights))
