@@ -6,16 +6,21 @@
 // which is the argmin of ‖x − c_l‖² (‖x‖² does not depend on l). Masked
 // centroids score kNeg and never win; ties go to the first index, as
 // jnp.argmax and torch.argmax do. A null lmask means every centroid is
-// valid. D and L are small (D = 8, L <= 16 on the main paths), below any
-// tensor-core tile, so the dot products are plain FMAs over a row and a
-// codebook that sits in shared memory.
+// valid. D is small (D <= 64; D = 8 and L <= 16 on the FEMNIST and serve
+// paths, D <= 32 and L <= 960 on the text tasks), below any tensor-core
+// tile, so the dot products are plain FMAs over a row and a codebook that
+// sits in shared memory, whole or a tile at a time.
 //
-// Two forms of the same arithmetic: assign_row_best reads the row from
-// shared memory at run-time D and L (the generic routes), assign_row_reg
-// reads it from registers at compile-time D and L (the d8 routes). Both
-// run k ascending in one fmaf chain per centroid, then 2·dot − ‖c‖² as one
-// fmaf (2·dot is exact, so this is the rounding of the subtraction alone),
-// then a strict >, so they give the same code and best score bit for bit.
+// Three forms of the same arithmetic: assign_row_best reads the row from
+// shared memory at run-time D and L (lloyd_update's generic route),
+// assign_row_reg reads it from registers at compile-time D and L (the d8
+// routes), and assign_row_streamed streams a codebook of any L through
+// shared memory in tiles of kLTile centroids (the generic routes of
+// kmeans_assign and pq_quantize, lloyd_update's tiled route). All run k
+// ascending in one fmaf chain per centroid, then 2·dot − ‖c‖² as one fmaf
+// (2·dot is exact, so this is the rounding of the subtraction alone), then
+// a strict > over l ascending, so they give the same code and best score
+// bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +71,28 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
     xs[(e / d) * stride + e % d] = to_f32(src[e]);
 }
 
+// Folds centroids l0 .. l0 + lt − 1, held in shared memory as cs [lt][d],
+// cn and ms [lt], into a row's running (best, code), l ascending, by a
+// strict >: the first index of the maximum wins, and a NaN score never
+// does.
+__device__ __forceinline__ void assign_row_fold(const float* xr,
+                                                const float* cs,
+                                                const float* cn,
+                                                const float* ms, int l0,
+                                                int lt, int d, float* best,
+                                                int* code) {
+  for (int li = 0; li < lt; ++li) {
+    float dot = 0.f;
+    for (int k = 0; k < d; ++k) dot = fmaf(xr[k], cs[li * d + k], dot);
+    float s = fmaf(2.f, dot, -cn[li]);  // 2·dot is exact: one rounding
+    if (!(ms[li] > 0.f)) s = kNeg;
+    if (s > *best) {
+      *best = s;
+      *code = l0 + li;
+    }
+  }
+}
+
 // The row's code, and its best score in *best_score (kmeans_assign.cu turns
 // it into the squared distance ‖x‖² − best).
 __device__ __forceinline__ int assign_row_best(const float* xr,
@@ -75,16 +102,7 @@ __device__ __forceinline__ int assign_row_best(const float* xr,
                                                float* best_score) {
   float best = -INFINITY;
   int code = 0;
-  for (int li = 0; li < l; ++li) {
-    float dot = 0.f;
-    for (int k = 0; k < d; ++k) dot = fmaf(xr[k], cs[li * d + k], dot);
-    float s = fmaf(2.f, dot, -cn[li]);  // 2·dot is exact: one rounding
-    if (!(ms[li] > 0.f)) s = kNeg;
-    if (s > best) {
-      best = s;
-      code = li;
-    }
-  }
+  assign_row_fold(xr, cs, cn, ms, 0, l, d, &best, &code);
   *best_score = best;
   return code;
 }
@@ -94,6 +112,37 @@ __device__ __forceinline__ int assign_row(const float* xr, const float* cs,
                                           int l, int d) {
   float best;
   return assign_row_best(xr, cs, cn, ms, l, d, &best);
+}
+
+// ---------------------------------------------------------------------------
+// Any L: the codebook streams through shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kLTile = 64;  // centroids a tile
+
+// A block's rows against a codebook of any L: the (l, d) codebook c and
+// the (l,) lmask (null: every centroid valid) pass through cs [kLTile][d],
+// cn and ms [kLTile] in tiles of kLTile centroids, each with its norms
+// from load_codebook, and every thread with a row (xr not null) folds each
+// tile into its running best and code. Over the tiles this is
+// assign_row_best's scan, so the code and best score are bit for bit
+// those of a codebook held whole. Call with the whole block; it ends with a barrier,
+// after which cs may be reused.
+__device__ __forceinline__ int assign_row_streamed(
+    const float* xr, const float* __restrict__ c,
+    const float* __restrict__ lmask, float* cs, float* cn, float* ms, int l,
+    int d, float* best_score) {
+  float best = -INFINITY;
+  int code = 0;
+  for (int l0 = 0; l0 < l; l0 += kLTile) {
+    const int lt = min(kLTile, l - l0);
+    load_codebook(c + (size_t)l0 * d, lmask ? lmask + l0 : nullptr, cs, cn,
+                  ms, lt, d);  // ends with a barrier
+    if (xr) assign_row_fold(xr, cs, cn, ms, l0, lt, d, &best, &code);
+    __syncthreads();  // the next tile overwrites cs, cn and ms
+  }
+  *best_score = best;
+  return code;
 }
 
 // assign_row's arithmetic on a row held in registers, at compile-time L and

@@ -30,9 +30,11 @@
 //    warp's store covers 128 contiguous bytes. (Staging a warp's outputs in
 //    shared memory for 16-byte stores, and a codebook left in shared
 //    memory, were both slower on an H100: PERF.md.)
-//  * Route generic (any D <= 64, L <= 64, a mask, any alignment): one block
+//  * Route generic (any D <= 64, any L, a mask, any alignment): one block
 //    per tile of kThreads rows of one problem, read with coalesced loads
-//    into shared memory, where the codebook and mask sit too.
+//    into shared memory; the codebook streams through shared memory
+//    kLTile centroids at a time (assign.cuh's assign_row_streamed), so
+//    the block's shared memory does not grow with L.
 //  * The TPU kernel takes the cross term as an MXU matmul. Here the scores
 //    stay FMAs (no TF32 or bf16 mma, which would round the codebook): the
 //    code comes from assign.cuh, the routine lloyd_update and pq_quantize
@@ -108,17 +110,17 @@ assign_generic(const T* __restrict__ x, const float* __restrict__ c,
   const int t0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - t0);
   const int xstride = row_stride(d);
-  float* cs = smem;                     // [l][d]
-  float* cn = cs + l * d;               // [l]
-  float* ms = cn + l;                   // [l]
-  float* xs = ms + l;                   // [kThreads][xstride]
+  float* cs = smem;                     // [kLTile][d]
+  float* cn = cs + kLTile * d;          // [kLTile]
+  float* ms = cn + kLTile;              // [kLTile]
+  float* xs = ms + kLTile;              // [kThreads][xstride]
 
   load_tile(x + ((size_t)p * n + t0) * d, xs, rows, d);
-  load_codebook(c + (size_t)p * l * d, lmask, cs, cn, ms, l, d);  // syncs
-  if (tid < rows) {
-    const float* xr = xs + tid * xstride;
-    float best;
-    const int code = assign_row_best(xr, cs, cn, ms, l, d, &best);
+  const float* xr = tid < rows ? xs + tid * xstride : nullptr;
+  float best;
+  const int code = assign_row_streamed(xr, c + (size_t)p * l * d, lmask, cs,
+                                       cn, ms, l, d, &best);
+  if (xr) {
     float xn = 0.f;
     for (int k = 0; k < d; ++k) xn = fmaf(xr[k], xr[k], xn);
     const size_t i = (size_t)p * n + t0 + tid;
@@ -164,7 +166,7 @@ template <typename T>
 cudaError_t launch_generic(const void* x, const void* c, const void* lmask,
                            void* codes, void* sqdist, int p, int n, int l,
                            int d, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)l * d + 2 * l +
+  const size_t smem = sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
                                        (size_t)kThreads * row_stride(d));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -214,6 +216,7 @@ extern "C" int kmeans_assign_launch(const void* x, const void* c,
                       : launch_d8_l<float>(x, c, codes, sqdist, p, n, l,
                                            nblocks, s));
   }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return (int)(bf16 ? launch_generic<__nv_bfloat16>(x, c, lmask, codes,
                                                     sqdist, p, n, l, d, s)
                     : launch_generic<float>(x, c, lmask, codes, sqdist, p, n,

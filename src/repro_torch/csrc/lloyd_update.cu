@@ -36,10 +36,28 @@
 //    warps' sums are added in warp order, and the block writes one partial
 //    per output. The codebook and its norms are read into shared memory
 //    once per block, and from there into registers for the scores.
-//  * Route generic (any D <= 64, L <= 64, any alignment): each block takes
-//    rows_per_block rows in tiles of kThreads rows through shared memory,
-//    and every output element (l, k) has one owner thread that adds the
-//    tile's rows in row order.
+//  * Route generic (any D <= 64, L up to the caller's threshold, any
+//    alignment): each block takes rows_per_block rows in tiles of kThreads
+//    rows through shared memory, and every output element (l, k) has one
+//    owner thread that adds the tile's rows in row order. The block holds
+//    the codebook and the L·(D+1) sums in shared memory (generic_smem), so
+//    the caller takes it only for as long as the card keeps two such
+//    blocks resident per SM at D = 64 (lloyd_update_generic_max_l: 89 on
+//    an H100).
+//  * Route tiled (any D <= 64, any L; the caller takes it above that
+//    threshold, where the generic block's shared memory would crowd the
+//    SM: 123 KB of sums alone at L = 960, D = 32). Three kernels:
+//    lloyd_tiled_codes writes every row's code to a scratch array
+//    (assign.cuh's assign_row_streamed, the codebook streamed in tiles of
+//    kLTile centroids); lloyd_tiled_stats gives each block a tile of
+//    kLTile centroids and a range of rows_per_block rows, so it holds
+//    kLTile·(D+1) sums; in each row tile it buckets the rows whose code
+//    falls in its centroid tile by a stable counting sort in shared
+//    memory, and each output's owner thread adds only its bucket's rows,
+//    in row order (the generic owner tests every row of the tile for
+//    every output); lloyd_reduce adds the row ranges' partials in block
+//    order. Each sum is the generic route's, term for term and in the same
+//    order, for the same rows_per_block.
 //  * D and L are below tensor-core sizes: the distances are FMAs against a
 //    codebook in shared memory (assign.cuh), and the TPU kernel's one-hot
 //    matmul becomes an indexed read of the chosen centroid.
@@ -208,6 +226,115 @@ lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
   for (int o = tid; o < nout; o += kThreads) out[o] = acc[o];
 }
 
+// ---------------------------------------------------------------------------
+// route tiled
+// ---------------------------------------------------------------------------
+
+// Every row's code, into the scratch array codes (P, N): one block per
+// tile of kThreads rows of one problem, as pq_quantize's generic route.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lloyd_tiled_codes(const T* __restrict__ x, const float* __restrict__ c,
+                  const float* __restrict__ lmask, int* __restrict__ codes,
+                  int n, int l, int d) {
+  extern __shared__ float smem[];
+  const int p = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kThreads;
+  const int rows = min(kThreads, n - t0);
+  const int xstride = row_stride(d);
+  float* cs = smem;                     // [kLTile][d]
+  float* cn = cs + kLTile * d;          // [kLTile]
+  float* ms = cn + kLTile;              // [kLTile]
+  float* xs = ms + kLTile;              // [kThreads][xstride]
+
+  load_tile(x + ((size_t)p * n + t0) * d, xs, rows, d);
+  float best;
+  const int code = assign_row_streamed(
+      tid < rows ? xs + tid * xstride : nullptr, c + (size_t)p * l * d,
+      lmask, cs, cn, ms, l, d, &best);
+  if (tid < rows) codes[(size_t)p * n + t0 + tid] = code;
+}
+
+// Block (b, t, p) adds rows [b·rows_per_block, (b+1)·rows_per_block) of
+// problem p into the kLTile·(D+1) sums of centroids [t·kLTile, ...), and
+// writes them to its partial, laid out as lloyd_reduce reads it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ c, const int* __restrict__ codes,
+                  float* __restrict__ partials, int n, int l, int d,
+                  int rows_per_block) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, nb = gridDim.x, p = blockIdx.z;
+  const int l0 = blockIdx.y * kLTile, lt = min(kLTile, l - l0);
+  const int tid = threadIdx.x;
+  const int xstride = row_stride(d);
+  const int nout = lt * (d + 1);  // this tile's outputs
+  float* cs = smem;                            // [kLTile][d]
+  float* acc = cs + kLTile * d;                // [kLTile][d+1]
+  float* xs = acc + kLTile * (d + 1);          // [kThreads][xstride]
+  float* ws = xs + kThreads * xstride;         // [kThreads]
+  int* cd = reinterpret_cast<int*>(ws + kThreads);  // [kThreads], local
+  int* order = cd + kThreads;                  // [kThreads] rows by code
+  int* cnt = order + kThreads;                 // [kLTile] bucket sizes
+  int* start = cnt + kLTile;                   // [kLTile] bucket offsets
+
+  for (int e = tid; e < lt * d; e += kThreads)
+    cs[e] = c[((size_t)p * l + l0) * d + e];
+  for (int o = tid; o < nout; o += kThreads) acc[o] = 0.f;
+
+  const T* xp = x + (size_t)p * n * d;
+  const float* wp = w ? w + (size_t)p * n : nullptr;
+  const int* cp = codes + (size_t)p * n;
+  const int row_end = min((b + 1) * rows_per_block, n);
+  for (int t0 = b * rows_per_block; t0 < row_end; t0 += kThreads) {
+    const int rows = min(kThreads, row_end - t0);
+    if (tid < rows) {
+      cd[tid] = cp[t0 + tid] - l0;  // in [0, lt) for this block's rows
+      ws[tid] = wp ? wp[t0 + tid] : 1.f;
+    }
+    load_tile(xp + (size_t)t0 * d, xs, rows, d);
+    __syncthreads();
+    // stable counting sort: thread j lists the tile's rows of local code j
+    // in row order, after the rows of codes 0 .. j−1
+    if (tid < lt) {
+      int m = 0;
+      for (int r = 0; r < rows; ++r) m += cd[r] == tid;
+      cnt[tid] = m;
+    }
+    __syncthreads();
+    if (tid < lt) {
+      int i = 0;
+      for (int j = 0; j < tid; ++j) i += cnt[j];
+      start[tid] = i;
+      for (int r = 0; r < rows; ++r)
+        if (cd[r] == tid) order[i++] = r;
+    }
+    __syncthreads();
+    for (int o = tid; o < nout; o += kThreads) {
+      const int j = o / (d + 1), k = o % (d + 1);
+      const int* rs = order + start[j];
+      const int m = cnt[j];
+      float s = acc[o];
+      if (k < d) {
+        const float ck = cs[j * d + k];
+        for (int i = 0; i < m; ++i) {
+          const int r = rs[i];
+          s += __fmul_rn(ws[r], xs[r * xstride + k] - ck);
+        }
+      } else {
+        for (int i = 0; i < m; ++i) s += ws[rs[i]];
+      }
+      acc[o] = s;
+    }
+    __syncthreads();  // the next tile overwrites xs, ws, cd and the buckets
+  }
+  float* out = partials + ((size_t)p * nb + b) * l * (d + 1) +
+               (size_t)l0 * (d + 1);
+  for (int o = tid; o < nout; o += kThreads) out[o] = acc[o];
+}
+
 // One block per problem: adds the nb partials of each output in block order.
 __global__ void lloyd_reduce(const float* __restrict__ partials,
                              float* __restrict__ dsums,
@@ -294,24 +421,82 @@ int d8_occupancy_l(int l) {
   }
 }
 
+// Sets a kernel's dynamic shared memory limit where it needs more than the
+// default 48 KB.
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// A generic block's dynamic shared memory: the codebook, its norms and
+// mask, the L·(D+1) sums, a tile of kThreads rows at an odd stride, their
+// weights and codes.
+size_t generic_smem(int l, int d) {
+  return sizeof(float) * ((size_t)l * d + 2 * l + (size_t)l * (d + 1) +
+                          (size_t)kThreads * row_stride(d) + kThreads) +
+         sizeof(int) * kThreads;
+}
+
+// Resident generic blocks per SM of the instance T at (l, d), 0 where a
+// block does not fit.
+template <typename T>
+int generic_occupancy(int l, int d) {
+  const size_t smem = generic_smem(l, d);
+  const void* k = reinterpret_cast<const void*>(lloyd_generic<T>);
+  int blocks = 0;
+  if (allow_smem(k, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
 template <typename T>
 cudaError_t launch_generic(const void* x, const void* w, const void* c,
                            const void* lmask, void* partials, int p, int n,
                            int l, int d, int rows_per_block, int nblocks,
                            cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * ((size_t)l * d + 2 * l + (size_t)l * (d + 1) +
-                       (size_t)kThreads * row_stride(d) + kThreads) +
-      sizeof(int) * kThreads;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lloyd_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem = generic_smem(l, d);
+  cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(lloyd_generic<T>), smem);
+  if (e != cudaSuccess) return e;
   lloyd_generic<T><<<dim3(nblocks, p), kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(c), static_cast<const float*>(lmask),
+      static_cast<float*>(partials), n, l, d, rows_per_block);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tiled(const void* x, const void* w, const void* c,
+                         const void* lmask, void* codes, void* partials,
+                         int p, int n, int l, int d, int rows_per_block,
+                         int nblocks, cudaStream_t s) {
+  const size_t smem_codes =
+      sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
+                       (size_t)kThreads * row_stride(d));
+  const size_t smem_stats =
+      sizeof(float) * ((size_t)kLTile * d + (size_t)kLTile * (d + 1) +
+                       (size_t)kThreads * row_stride(d) + kThreads) +
+      sizeof(int) * (2 * kThreads + 2 * kLTile);
+  cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(lloyd_tiled_codes<T>), smem_codes);
+  if (e == cudaSuccess)
+    e = allow_smem(reinterpret_cast<const void*>(lloyd_tiled_stats<T>),
+                   smem_stats);
+  if (e != cudaSuccess) return e;
+  lloyd_tiled_codes<T><<<dim3((n + kThreads - 1) / kThreads, p), kThreads,
+                         smem_codes, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(c),
+      static_cast<const float*>(lmask), static_cast<int*>(codes), n, l, d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(nblocks, (l + kLTile - 1) / kLTile, p);
+  lloyd_tiled_stats<T><<<grid, kThreads, smem_stats, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(c), static_cast<const int*>(codes),
       static_cast<float*>(partials), n, l, d, rows_per_block);
   return cudaGetLastError();
 }
@@ -324,15 +509,31 @@ extern "C" int lloyd_update_d8_occupancy(int l, int bf16) {
   return bf16 ? d8_occupancy_l<__nv_bfloat16>(l) : d8_occupancy_l<float>(l);
 }
 
+// The largest L at which a generic block at D = d, f32 or bf16, still
+// leaves min_blocks resident blocks per SM on the current device (0 where
+// none does at L = 1): what the caller compares L with to choose between
+// the generic and the tiled route.
+extern "C" int lloyd_update_generic_max_l(int d, int min_blocks) {
+  int l = 0;
+  while (l < (1 << 16) &&
+         min(generic_occupancy<float>(l + 1, d),
+             generic_occupancy<__nv_bfloat16>(l + 1, d)) >= min_blocks)
+    ++l;
+  cudaGetLastError();  // clears the error of the probe that did not fit
+  return l;
+}
+
 // route 1 = d8 (rows = its kD8Threads·kD8Rows rows per tile), 0 = generic
-// (rows = rows per block, a multiple of kThreads); w and lmask may be null.
-// partials: scratch of nblocks·P·L·(D+1) floats, allocated by the caller.
+// and 2 = tiled (rows = rows per block, a multiple of kThreads); w and
+// lmask may be null. partials: scratch of nblocks·P·L·(D+1) floats; codes:
+// scratch of P·N ints for the tiled route (null for the others); both
+// allocated by the caller.
 extern "C" int lloyd_update_launch(const void* x, const void* w,
                                    const void* c, const void* lmask,
-                                   void* partials, void* dsums, void* counts,
-                                   int p, int n, int l, int d, int route,
-                                   int bf16, int rows, int nblocks,
-                                   void* stream) {
+                                   void* codes, void* partials, void* dsums,
+                                   void* counts, int p, int n, int l, int d,
+                                   int route, int bf16, int rows,
+                                   int nblocks, void* stream) {
   if (p == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nblocks > 0) {
@@ -344,6 +545,13 @@ extern "C" int lloyd_update_launch(const void* x, const void* w,
                                              l, nblocks, s)
                : launch_d8_l<float>(x, w, c, lmask, partials, p, n, l,
                                     nblocks, s);
+    } else if (route == 2) {
+      if (rows % kThreads != 0 || codes == nullptr)
+        return (int)cudaErrorInvalidValue;
+      e = bf16 ? launch_tiled<__nv_bfloat16>(x, w, c, lmask, codes, partials,
+                                              p, n, l, d, rows, nblocks, s)
+               : launch_tiled<float>(x, w, c, lmask, codes, partials, p, n,
+                                     l, d, rows, nblocks, s);
     } else {
       if (rows % kThreads != 0) return (int)cudaErrorInvalidValue;
       e = bf16 ? launch_generic<__nv_bfloat16>(x, w, c, lmask, partials, p,

@@ -22,9 +22,14 @@
 //    and each code as one int32, coalesced across the warp. Nothing goes
 //    through shared memory on the way out, and there is no barrier per
 //    tile.
-//  * Route generic (any D <= 64, L <= 64, any alignment): one block per
-//    tile of kThreads rows of one problem, read into shared memory, z̃ and
-//    the residual written element by element.
+//  * Route generic (any D <= 64, any L, any alignment): one block per tile
+//    of kThreads rows of one problem, read into shared memory; the
+//    codebook streams through shared memory kLTile centroids at a time
+//    (assign.cuh's assign_row_streamed), so the block's shared memory does
+//    not grow with L. z̃ and the residual are written element by element,
+//    the chosen centroid read from shared memory where the codebook is one
+//    tile, else from device memory (L2-resident: at L = 960, D = 32 a
+//    problem's codebook is 123 KB).
 //  * The TPU kernel gathers the centroid with a one-hot matmul, an MXU
 //    idiom. Here the codebook sits in shared memory and the gather is an
 //    indexed read of it; the assignment is FMAs (assign.cuh).
@@ -107,24 +112,29 @@ pq_generic(const T* __restrict__ x, const float* __restrict__ c,
   const int t0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - t0);
   const int xstride = row_stride(d);
-  float* cs = smem;                     // [l][d]
-  float* cn = cs + l * d;               // [l]
-  float* ms = cn + l;                   // [l]
-  float* xs = ms + l;                   // [kThreads][xstride]
+  float* cs = smem;                     // [kLTile][d]
+  float* cn = cs + kLTile * d;          // [kLTile]
+  float* ms = cn + kLTile;              // [kLTile]
+  float* xs = ms + kLTile;              // [kThreads][xstride]
   int* cd = reinterpret_cast<int*>(xs + kThreads * xstride);  // [kThreads]
 
   const size_t base = ((size_t)p * n + t0) * d;
-  load_tile(x + base, xs, rows, d);
-  load_codebook(c + (size_t)p * l * d, lmask, cs, cn, ms, l, d);  // syncs
+  const float* cp = c + (size_t)p * l * d;
+  load_tile(x + base, xs, rows, d);  // the first tile's barrier orders it
+  float best;
+  const int code = assign_row_streamed(
+      tid < rows ? xs + tid * xstride : nullptr, cp, lmask, cs, cn, ms, l, d,
+      &best);
   if (tid < rows) {
-    const int code = assign_row(xs + tid * xstride, cs, cn, ms, l, d);
     cd[tid] = code;
     codes[(size_t)p * n + t0 + tid] = code;
   }
   __syncthreads();
+  // a codebook of one tile is still in cs (the same values as c)
+  const float* zc = l <= kLTile ? cs : cp;
   for (int e = tid; e < rows * d; e += kThreads) {
     const int r = e / d, k = e % d;
-    const float z = cs[cd[r] * d + k];
+    const float z = zc[(size_t)cd[r] * d + k];
     store_one(zt + base + e, z);
     resid[base + e] = xs[r * xstride + k] - z;
   }
@@ -171,7 +181,7 @@ cudaError_t launch_generic(const void* x, const void* c, const void* lmask,
                            void* zt, void* resid, void* codes, int p, int n,
                            int l, int d, cudaStream_t s) {
   const size_t smem =
-      sizeof(float) * ((size_t)l * d + 2 * l +
+      sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
                        (size_t)kThreads * row_stride(d)) +
       sizeof(int) * kThreads;
   if (smem > 48 * 1024) {
@@ -204,8 +214,8 @@ extern "C" int pq_quantize_d8_occupancy(int l, int bf16) {
 }
 
 // route 1 = d8 (rows must be its kD8Threads·kD8Rows rows per tile, nblocks
-// blocks per problem),
-// 0 = generic (rows and nblocks unused); lmask may be null.
+// blocks per problem), 0 = generic (rows and nblocks unused); lmask may be
+// null.
 extern "C" int pq_quantize_launch(const void* x, const void* c,
                                   const void* lmask, void* zt, void* resid,
                                   void* codes, int p, int n, int l, int d,
@@ -221,6 +231,7 @@ extern "C" int pq_quantize_launch(const void* x, const void* c,
                       : launch_d8_l<float>(x, c, lmask, zt, resid, codes, p,
                                            n, l, nblocks, s));
   }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   return (int)(bf16 ? launch_generic<__nv_bfloat16>(x, c, lmask, zt, resid,
                                                     codes, p, n, l, d, s)
                     : launch_generic<float>(x, c, lmask, zt, resid, codes, p,

@@ -100,15 +100,16 @@ class CohortExecutor:
 
 
 class _ClientForward(torch.nn.Module):
-    """``model.client_forward`` of a batch dict, as a module's forward, so
-    that ``functional_call`` can run it on a state's params."""
+    """``model.client_forward`` of a batch dict (its entry under the
+    model's ``input_key``), as a module's forward, so that
+    ``functional_call`` can run it on a state's params."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
         self.model = model
 
     def forward(self, batch):
-        return self.model.client_forward(batch["image"])
+        return self.model.client_forward(batch[self.model.input_key])
 
 
 @dataclasses.dataclass

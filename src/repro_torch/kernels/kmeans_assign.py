@@ -11,10 +11,11 @@ x is f32 or bf16, read in its own dtype (the kernel upcasts in registers,
 exactly), so a bf16 x gives bitwise its f32 upcast's codes and distances.
 
 Two routes, picked by ``assign_route``: ``d8`` (no mask and what
-``lloyd_update.row_route`` calls d8: D = 8, L in ``D8_L``, x 16-byte
-aligned; persistent blocks stream whole rows into registers) and
-``generic`` (any D <= 64, L <= 64, a mask, any alignment). Both give the
-same codes and distances bit for bit.
+``lloyd_update.d8_rows`` takes: D = 8, L in ``D8_L``, x 16-byte aligned;
+persistent blocks stream whole rows into registers) and ``generic`` (any
+D <= 64, any L, a mask, any alignment: the codebook streamed through
+shared memory in tiles of ``TILE_L`` centroids). Both give the same codes
+and distances bit for bit.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. The kernel takes its codes from the same
@@ -31,9 +32,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lloyd_update import (D8_TILE, _ptr,
+from repro_torch.kernels.lloyd_update import (D8_TILE, ROUTE_IDS, _ptr,
                                               check_cuda_inputs, d8_grid,
-                                              row_route)
+                                              d8_rows)
 
 D8_MIN_TILES = 1   # d8 route: tiles a block takes at least (PERF.md)
 
@@ -42,9 +43,10 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 def assign_route(x: torch.Tensor, num_centroids: int,
                  lmask: Optional[torch.Tensor]) -> str:
-    """``"d8"`` where no mask is given and ``row_route`` says d8;
-    ``"generic"`` otherwise."""
-    return "generic" if lmask is not None else row_route(x, num_centroids)
+    """``"d8"`` where no mask is given (the d8 instances read none) and
+    ``lloyd_update.d8_rows``, else ``"generic"``."""
+    return "d8" if lmask is None and d8_rows(x, num_centroids) \
+        else "generic"
 
 
 def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
@@ -59,15 +61,15 @@ def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
     check_cuda_inputs("kmeans_assign", x, centroids, lmask)
     p, n, d = x.shape
     l = centroids.shape[1]
-    d8 = assign_route(x, l, lmask) == "d8"
+    route = assign_route(x, l, lmask)
     blocks = d8_grid("kmeans_assign", "kmeans_assign_d8_occupancy", x, l,
-                     D8_TILE, D8_MIN_TILES) if d8 else 0
+                     D8_TILE, D8_MIN_TILES) if route == "d8" else 0
     lib = _build.load("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
     sqdist = torch.empty((p, n), device=x.device, dtype=torch.float32)
     rc = lib.kmeans_assign_launch(
         x.data_ptr(), centroids.data_ptr(), _ptr(lmask),
-        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d, int(d8),
+        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d, ROUTE_IDS[route],
         int(x.dtype == torch.bfloat16), D8_TILE, blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

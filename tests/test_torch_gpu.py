@@ -16,10 +16,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_route
 from repro_torch.kernels.kmeans_assign import (assign_route,
                                                kmeans_assign_kernel)
-from repro_torch.kernels.lloyd_update import (lloyd_layout,
+from repro_torch.kernels.lloyd_update import (generic_max_l, lloyd_layout,
                                               lloyd_update_in_kernel_order,
                                               lloyd_update_kernel, row_route)
-from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+from repro_torch.kernels.pq_quantize import pq_quantize_kernel, pq_route
 from repro_torch.kernels.scalar_quant import (scalar_quantize_kernel,
                                               scalar_route)
 
@@ -597,3 +597,196 @@ def test_scheduler_backends_agree_on_a_card_run():
         [{**r.__dict__, "metrics": None} for r in b]
     assert len(a.flights) == len(b.flights)
     assert all(x == y for x, y in zip(a.flights, b.flights))
+
+
+def _large_l(l, dev):
+    """A large codebook's L: a number, or "threshold" (the card's
+    ``generic_max_l``, the largest L of lloyd_update's generic route) or
+    "threshold + 1" (the smallest of its tiled route)."""
+    if isinstance(l, int):
+        return l
+    return generic_max_l(dev) + (1 if l.endswith("+ 1") else 0)
+
+
+# lloyd_update's tiled route: L just above the generic route's threshold,
+# the SO Tag grid's 100, the SO NWP grid's 960 and 2048, at D = 2, 16 and
+# 32 (pq_quantize and kmeans_assign on their generic route)
+TILED_L = ["threshold + 1", 100, 960, 2048]
+
+# lloyd_update's generic route at the SO runs' (D, L) (Tag q = 250, 500,
+# 1000; NWP q = 48, 12) and at its largest L at D = 64
+GENERIC_LARGE = [(8, 20), (4, 20), (2, 10), (2, 60), (8, 30),
+                 (64, "threshold")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,l", GENERIC_LARGE)
+def test_generic_route_at_so_shapes_on_card(d, l, dtype):
+    """lloyd_update on its generic route: counts exact, dsums bitwise the
+    plain version in the route's order and run to run, a bf16 x bitwise
+    its f32 upcast; pq_quantize and kmeans_assign on theirs: codes equal
+    but for near-ties (and equal to each other), z̃ and the residual
+    bitwise where codes agree, distances within 1e-5·(1 + ‖x‖²). Near-tie
+    rows weigh 0; a ragged N."""
+    dev = _cuda_or_skip()
+    l = _large_l(l, dev)
+    x, c = _inputs(35, dev, 3, 2501, d, l)
+    x = x.to(dtype)
+    lay = lloyd_layout(x, l)
+    assert lay.route == "generic"
+    assert pq_route(x, l) == assign_route(x, l, None) == "generic"
+    ties = ref.near_ties(x, c, None)
+    w = torch.where(ties, 0.0, torch.ones(3, 2501, device=dev)).contiguous()
+    ds, cnt = lloyd_update_kernel(x, w, c)
+    ds2, cnt2 = lloyd_update_kernel(x, w, c)
+    ds_f, cnt_f = lloyd_update_kernel(x.float(), w, c)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, c, None, lay)
+    _, cnt_r = ref.lloyd_update_ref(x, w, c)
+    assert torch.equal(ds, ds2) and torch.equal(cnt, cnt2)
+    assert torch.equal(ds, ds_f) and torch.equal(cnt, cnt_f)
+    assert torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_o)
+    assert torch.equal(ds, ds_o)
+    zt, resid, codes = pq_quantize_kernel(x, c)
+    zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, c)
+    same = codes == codes_r
+    assert not bool((~same & ~ties).any())
+    assert torch.equal(zt[same], zt_r[same])
+    assert torch.equal(resid[same], resid_r[same])
+    ka, sq = kmeans_assign_kernel(x, c)
+    _, sq_r = ref.kmeans_assign_ref(x, c)
+    assert torch.equal(ka, codes)
+    tol = 1e-5 * (1 + x.float().square().sum(-1))
+    assert bool(((sq - sq_r).abs()[same] <= tol[same]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2, 16, 32])
+@pytest.mark.parametrize("l", TILED_L)
+def test_tiled_lloyd_update_matches_plain_on_card(l, d, dtype):
+    """Counts exact; dsums bitwise the plain version summed in the route's
+    (the generic route's) block order; bitwise run to run; a bf16 x
+    bitwise its f32 upcast; near-tie rows weigh 0. N = 1500 < L = 2048
+    leaves most clusters empty: count 0, sums 0."""
+    dev = _cuda_or_skip()
+    l = _large_l(l, dev)
+    x, c = _inputs(31, dev, 3, 1500, d, l)
+    x = x.to(dtype)
+    lay = lloyd_layout(x, l)
+    assert lay.route == "tiled"
+    w = torch.where(ref.near_ties(x, c, None), 0.0,
+                    torch.ones(3, 1500, device=dev)).contiguous()
+    ds, cnt = lloyd_update_kernel(x, w, c)
+    ds2, cnt2 = lloyd_update_kernel(x, w, c)
+    ds_f, cnt_f = lloyd_update_kernel(x.float(), w, c)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, c, None, lay)
+    _, cnt_r = ref.lloyd_update_ref(x, w, c)
+    assert torch.equal(ds, ds2) and torch.equal(cnt, cnt2)
+    assert torch.equal(ds, ds_f) and torch.equal(cnt, cnt_f)
+    assert torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_o)
+    assert torch.equal(ds, ds_o)
+    empty = cnt == 0
+    assert bool((ds[empty] == 0).all())
+    assert bool(empty.any()) or l < 1500
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2, 16, 32])
+@pytest.mark.parametrize("l", TILED_L)
+def test_tiled_pq_quantize_and_kmeans_assign_match_plain_on_card(l, d,
+                                                                dtype):
+    """pq_quantize: codes equal but for near-ties, z̃ and the residual
+    bitwise where codes agree. kmeans_assign: the same codes, distances
+    within 1e-5·(1 + ‖x‖²), also through a mask (all valid but the last
+    centroid). Both bitwise run to run, a bf16 x bitwise its f32 upcast;
+    a ragged N."""
+    dev = _cuda_or_skip()
+    l = _large_l(l, dev)
+    x, c = _inputs(32, dev, 3, 1501, d, l)
+    x = x.to(dtype)
+    assert row_route(x, l) == "tiled"
+    assert pq_route(x, l) == assign_route(x, l, None) == "generic"
+    zt, resid, codes = pq_quantize_kernel(x, c)
+    zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, c)
+    same = codes == codes_r
+    ties = ref.near_ties(x, c, None)
+    assert not bool((~same & ~ties).any())
+    assert torch.equal(zt[same], zt_r[same])
+    assert torch.equal(resid[same], resid_r[same])
+    zt2, resid2, codes2 = pq_quantize_kernel(x, c)
+    assert torch.equal(zt, zt2) and torch.equal(resid, resid2) \
+        and torch.equal(codes, codes2)
+    zt_f, resid_f, codes_f = pq_quantize_kernel(x.float(), c)
+    assert torch.equal(codes, codes_f) and torch.equal(resid, resid_f)
+    assert torch.equal(zt, zt_f.to(dtype))
+    lmask = torch.ones(l, device=dev)
+    lmask[-1] = 0.0
+    for mask in (None, lmask):
+        ka, sq = kmeans_assign_kernel(x, c, mask)
+        ka_r, sq_r = ref.kmeans_assign_ref(x, c, mask)
+        agree = ka.long() == ka_r
+        assert not bool((~agree & ~ref.near_ties(x, c, mask)).any())
+        tol = 1e-5 * (1 + x.float().square().sum(-1))
+        assert bool(((sq - sq_r).abs()[agree] <= tol[agree]).all())
+        ka_f, sq_f = kmeans_assign_kernel(x.float(), c, mask)
+        assert torch.equal(ka, ka_f) and torch.equal(sq, sq_f)
+        if mask is None:
+            assert torch.equal(ka, codes)
+        else:
+            assert not bool((ka == l - 1).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", ["threshold + 1", 960])
+def test_tiled_three_kernels_pick_the_same_codes_on_card(l):
+    """Rows midway between two centroids: kmeans_assign, pq_quantize and
+    lloyd_update (one-row problems) give each the same code."""
+    dev = _cuda_or_skip()
+    l = _large_l(l, dev)
+    x, c = _inputs(33, dev, 1, 1000, 16, l)
+    r = np.random.default_rng(34)
+    a, b = r.integers(0, l, 1000), r.integers(0, l, 1000)
+    x[0] = (c[0, a] + c[0, b]) / 2 + 1e-7 * x[0]
+    codes_a, _ = ops.kmeans_assign(x, c)
+    _, _, codes_q = ops.pq_quantize(x, c)
+    rows = x[0].reshape(1000, 1, 16).contiguous()
+    _, cnt = ops.lloyd_update(rows, c.expand(1000, -1, -1).contiguous())
+    assert torch.equal(cnt.sum(-1), torch.ones(1000, device=dev))
+    assert torch.equal(codes_a[0], codes_q[0])
+    assert torch.equal(codes_a[0], cnt.argmax(-1).to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_so_tag_round_at_l100_on_card():
+    """One SO Tag round at full width, PQ q = 125 L = 100 (D = 16): the
+    kernels refused L > 64 with a ValueError before they took any L; now
+    lloyd_update launches on its tiled route, pq_quantize on its generic
+    one, and the loss is finite."""
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_tag_data
+    from repro_torch.federated import FederatedTrainer, wire
+    from repro_torch.kernels import _build
+    from repro_torch.models.paper_models import SOTagMLP
+    from repro_torch.optim import adagrad
+
+    _cuda_or_skip()
+    pq = PQConfig(num_subvectors=125, num_clusters=100, kmeans_iters=5)
+    model = SOTagMLP(pq=pq, lam=1e-3, client_batch=100,
+                     generator=torch.Generator().manual_seed(0))
+    data = make_federated_tag_data(num_clients=32, seed=0)
+    tr = FederatedTrainer(model, adagrad(10 ** -0.5), data, cohort=10,
+                          client_batch=100)
+    x = torch.empty((10, 12500, 16), device="cuda")
+    assert row_route(x, 100) == "tiled" and pq_route(x, 100) == "generic"
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    state, hist = tr.run(1, 0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"lloyd_update": 10, "pq_quantize": 2}
+    assert np.isfinite(hist[0]["loss"])
+    assert tr.last_trace.meta["uplink_bytes_per_client"] == \
+        wire.wire_bits(pq, 100, 2000) // 8
+    r5 = model.recall_at_5(data.eval_batch(np.random.default_rng(1), 256))
+    assert 0.0 <= float(r5) <= 1.0
