@@ -79,6 +79,32 @@ Phases (each prints its own lines; any failure exits non-zero):
                 its generic route held against CPU copies; the FPS
                 seeding's time at L = 960; batched_kmeans at the NWP
                 grouping;
+  7d. determinism -- a step on the same inputs 5 times: the SO NWP
+                embedding's backward by indexing and by F.embedding at the
+                NWP cohort's tokens, the full-width FEMNIST and SO NWP
+                (48, 60) steps with the repair (bitwise, or the script
+                fails) and without it; the FEMNIST step and round times
+                with and without the repair, in turns;
+  7e. recovery -- kill-and-resume: the femnist example's --chaos
+                --warm-start run at full width (DEFAULT_CHAOS, error
+                feedback, run_with_recovery over 9 rounds, a snapshot every
+                3, killed at round 7) and SO NWP at (48, 60) (4 rounds, a
+                snapshot every 2, killed at round 3), each bitwise the
+                unkilled run (params, optimizer state, history, trace
+                records, flights) with exact launch counts, snapshot bytes
+                and write and restore times; a snapshot with a flipped
+                payload byte refused; an SO Tag TrainState at full width
+                saved and restored bitwise;
+  7f. health -- the --chaos --emit-trace run: HealthMonitor on the
+                trainer, the JSONL log read back by the port's inspector
+                (the report, --faults, --health with a failing --slo rule);
+                slo_violation events, every event name registered;
+  7g. autoscale -- the --autoscale --fleet mobile run at full width (24
+                rounds, re-planned every 8), then with a bytes budget of
+                half its first segment's bytes per round, which moves the
+                downlink to scalarq(bits=8) (scalar_quantize's launches
+                counted exactly); each segment's trace recommends its
+                recorded plan again;
   8. serve   -- split serving of Llama-3 8B at full width (32 layers,
                 d = 4096, 32/8 heads, vocab 128256, bf16, random weights
                 from --seed): the prefill of 4 prompts of 2048 tokens with
@@ -113,6 +139,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -213,20 +240,20 @@ DSUM_RTOL = 2e-5
 SQDIST_RTOL = 1e-5    # of (1 + ‖x‖²)
 # step-1 losses of a kernel step and a plain step from the same inputs
 LOSS_ATOL = 1e-4
-# the trainer's first round or flush on the card against the same one on
-# CPU copies (the plain versions): the update (state after − before) within
-# UPDATE_RTOL in L2, on the client's and the server's parameters each. A code
-# flip at a near-tie, a downlink value rounded to the other level, or the
-# SO NWP embedding's gradient summed by atomic adds (indexing's backward on
-# the card) in another order than the CPU's, moves a few entries; a client
-# missing from a flush of 4, or its weight off by 10 %, moves the update by
-# more than 2 %. On the SO runs the card's round also differs from the
-# CPU's outside the kernels (the LSTM's cuBLAS sums, the embedding's atomic
-# backward), and Adam's first step, lr·g/(|g| + eps), makes every gradient
-# entry near 0 a ±lr: SO NWP (48, 60) on the plain versions is 2.07e-2 from
-# the CPU copies on an H100. So an SO run's update is held to its run on
-# the plain versions on the card within UPDATE_RTOL (the kernels' share),
-# and to the CPU copies' within UPDATE_RTOL beyond that run's own gap
+# the trainer's first round or flush on the card against the same one on CPU
+# copies (the plain versions): the update (state after − before) within
+# UPDATE_RTOL in L2, on the client's and the server's parameters each. A
+# code flip at a near-tie, a downlink value rounded to the other level, or
+# the SO NWP embedding's gradient summed in another order than the CPU's,
+# moves a few entries; a client missing from a flush of 4, or its weight off
+# by 10 %, moves the update by more than 2 %. On the SO runs the card's
+# round also differs from the CPU's outside the kernels (the LSTM's cuBLAS
+# sums, the embedding's backward), and Adam's first step, lr·g/(|g| + eps),
+# makes every gradient entry near 0 a ±lr: SO NWP (48, 60) on the plain
+# versions is 2.07e-2 from the CPU copies on an H100. So an SO run's update
+# is held to its run on the plain versions on the card within UPDATE_RTOL
+# (the kernels' share), and to the CPU copies' within UPDATE_RTOL beyond
+# that run's own gap
 UPDATE_RTOL = 1e-2
 # and the mean PQ distortion within this of the CPU copies' (relative)
 TRAIN_DIST_RTOL = 1e-4
@@ -236,6 +263,18 @@ TRAIN_DIST_RTOL = 1e-4
 # code; one such flip moves one example's loss, the batch mean by up to
 # ~1e-4 (7.7e-5 seen on an H100), so the bound is 10x that
 WARM_LOSS_ATOL = 1e-3
+
+# crash recovery: the femnist example's --chaos --warm-start run (9
+# rounds, a snapshot every 3, killed at round 7 as tests/test_faults.py
+# kills it) and SO NWP at (q, L) = (48, 60) (4 rounds, a snapshot every 2,
+# killed at round 3); a step run DET_REPEATS times on the same inputs
+REC_ROUNDS, REC_EVERY, REC_KILL = 9, 3, 7
+NWP_REC = (48, 60)
+NWP_REC_ROUNDS, NWP_REC_EVERY, NWP_REC_KILL = 4, 2, 3
+DET_REPEATS = 5
+# the --emit-trace health run, and --autoscale (re-planned every 8 rounds)
+HEALTH_ROUNDS = 6
+AUTO_ROUNDS, AUTO_INTERVAL = 24, 8
 
 
 def fail(msg: str):
@@ -1808,7 +1847,9 @@ def phase_so_tasks(seed, dev="cuda"):
     round times. Round 1 of the runs in SO_HOLD is held to CPU copies (the
     plain versions); the FPS seeding of the two tiled cuts is timed.
     Returns the launches per "<kernel>/<route>" over the SO runs, and
-    kmeans_assign's in kmeans() at the NWP grouping."""
+    kmeans_assign's in kmeans() at the NWP grouping, and the LM dataset
+    with the batches of NWP_REC_ROUNDS rounds drawn ahead (the recovery
+    phase runs on it)."""
     from repro_torch.core import kmeans as km
     from repro_torch.data.synthetic import (make_federated_lm_data,
                                             make_federated_tag_data)
@@ -1823,7 +1864,8 @@ def phase_so_tasks(seed, dev="cuda"):
     one = lm_data.sample_batch(0, np.random.default_rng(1), NWP_B,
                                seq=NWP_SEQ)
     one_s = time.perf_counter() - t0
-    lm_data, draw_s, drawn = predrawn_lm_data(lm_data, seed, SO_ROUNDS)
+    lm_data, draw_s, drawn = predrawn_lm_data(
+        lm_data, seed, max(SO_ROUNDS, NWP_REC_ROUNDS))
     say("so", f"SO NWP batches: {one_s * 1e3:.1f} ms of numpy for one "
         f"client's {NWP_B} x {NWP_SEQ} tokens ({NWP_COHORT * one_s:.2f} s "
         f"a round of {NWP_COHORT} drawn one after another); {drawn} drawn "
@@ -1947,7 +1989,543 @@ def phase_so_tasks(seed, dev="cuda"):
         fail(f"batched_kmeans at L = 960: launches {kc}")
     route_counts["kmeans_assign/generic"] = kc["kmeans_assign"]
     say("so", f"batched_kmeans {tuple(x.shape)} L=960: launches {kc}")
-    return route_counts
+    return route_counts, lm_data
+
+
+# ---------------------------------------------------------------------------
+# runs that survive a crash, report their health and autoscale
+# ---------------------------------------------------------------------------
+
+def same_each_time(fn, repeats=DET_REPEATS):
+    """``fn()`` (a list of tensors) ``repeats`` times: (every run bitwise
+    the first, the largest |difference| seen)."""
+    first, same, worst = fn(), True, 0.0
+    for _ in range(repeats - 1):
+        for a, b in zip(first, fn()):
+            if not torch.equal(a, b):
+                same = False
+                worst = max(worst, float((a - b).detach().abs()
+                                         .max()))
+    return same, worst
+
+
+def host_ms(fn, n=10):
+    """Median host-clock time of ``fn()`` ending in a synchronize, ms."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def round_ms(trainer, seed, rounds=4):
+    """Median host time of rounds 2..rounds of ``trainer.run(rounds)``."""
+    marks = []
+
+    def on_round(rd, cursor):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    trainer.run(rounds, seed, on_round=on_round)
+    return statistics.median(np.diff(marks) * 1e3)
+
+
+@contextlib.contextmanager
+def unrepaired():
+    """The step as it was before the determinism repair: the cuDNN scope
+    open as a no-op, the NWP lookup by indexing."""
+    from repro_torch.core import fedlite
+    from repro_torch.models import paper_models
+    saved = fedlite._deterministic_cudnn, paper_models._embed
+    fedlite._deterministic_cudnn = contextlib.nullcontext
+    paper_models._embed = lambda table, tokens: table[tokens]
+    try:
+        yield
+    finally:
+        fedlite._deterministic_cudnn, paper_models._embed = saved
+
+
+def phase_determinism(seed):
+    """A resumed run recomputes rounds and must be the run never killed,
+    so a training step on the card must be a function of its inputs, bit
+    for bit. Each of these runs DET_REPEATS times on the same inputs: the
+    SO NWP embedding's backward at the NWP cohort's tokens (Zipf ids) by
+    indexing and by F.embedding; the full-width FEMNIST FedLite step
+    (cuDNN convolutions) and the SO NWP (48, 60) step, each with the
+    repair (the port as it is) and without it. With the repair every run
+    must be bitwise the first. Then the FEMNIST step and round times with
+    and without the repair, in turns."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.models.paper_models import FemnistCNN, SONwpLSTM
+    from repro_torch.optim import adam, sgd
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    n = NWP_COHORT * NWP_B
+    ranks = torch.arange(1, NWP_VOCAB + 1, dtype=torch.float64)
+    tokens = torch.multinomial(1 / ranks, n * NWP_SEQ, replacement=True,
+                               generator=gen).reshape(n, NWP_SEQ).cuda()
+    table = (torch.randn(NWP_VOCAB, NWP_D, generator=gen) * 0.02).cuda() \
+        .requires_grad_()
+    cot = torch.randn(n, NWP_SEQ, NWP_D, generator=gen).cuda()
+
+    def lookup_grad(lookup):
+        return lambda: list(torch.autograd.grad(
+            (lookup(table, tokens) * cot).sum(), table))
+    by_index = same_each_time(lookup_grad(lambda t, i: t[i]))
+    by_embedding = same_each_time(lookup_grad(
+        lambda t, i: F.embedding(i, t)))
+    say("determinism", f"embedding backward at {n} x {NWP_SEQ} tokens "
+        f"(vocab {NWP_VOCAB}, d {NWP_D}), {DET_REPEATS} runs: indexing "
+        f"bitwise {by_index[0]} (max |Δ| {by_index[1]:.3e}), F.embedding "
+        f"bitwise {by_embedding[0]} (max |Δ| {by_embedding[1]:.3e}); "
+        f"times {host_ms(lookup_grad(lambda t, i: t[i])):.3f} vs "
+        f"{host_ms(lookup_grad(lambda t, i: F.embedding(i, t))):.3f} ms")
+
+    pq = PQConfig(num_subvectors=Q, num_clusters=L, num_groups=R,
+                  kmeans_iters=ITERS)
+    model = FemnistCNN(pq=pq, lam=LAM, client_batch=CLIENT_BATCH,
+                       device="cuda", generator=gen)
+    state0 = TrainState.create(dict(model.named_parameters()), sgd(LR))
+    batch = make_batches(make_federated_image_data, seed, 1)[0]
+    step = make_train_step(model, sgd(LR))
+
+    def femnist():
+        return list(step(state0, batch)[0].params.values())
+    nwp = SONwpLSTM(NWP_VOCAB, NWP_D, NWP_HIDDEN, NWP_D,
+                    pq=PQConfig(*NWP_REC, kmeans_iters=ITERS), lam=SO_LAM,
+                    client_batch=NWP_B, device="cuda", generator=gen)
+    nstate = TrainState.create(dict(nwp.named_parameters()), adam(NWP_LR))
+    labels = torch.cat([tokens[:, 1:], torch.full((n, 1), -1,
+                                                  device="cuda")], 1)
+    nbatch = {"tokens": tokens, "labels": labels}
+    nstep = make_train_step(nwp, adam(NWP_LR))
+
+    def nwp_step():
+        return list(nstep(nstate, nbatch)[0].params.values())
+    repaired = {"FEMNIST": same_each_time(femnist),
+                "SO NWP": same_each_time(nwp_step)}
+    with unrepaired():
+        before = {"FEMNIST": same_each_time(femnist),
+                  "SO NWP": same_each_time(nwp_step)}
+    for task in repaired:
+        say("determinism", f"{task} step, {DET_REPEATS} runs from one "
+            f"state and batch: bitwise {repaired[task][0]} with the repair"
+            f" (max |Δparam| {repaired[task][1]:.3e}), {before[task][0]} "
+            f"without it (max |Δparam| {before[task][1]:.3e})")
+        if not repaired[task][0]:
+            fail(f"two identical {task} steps differ on the card")
+
+    turns = ("on", "off", "off", "on") * 2
+    ms, rounds = [], []
+    trainer = make_trainer("cuda", torch.Generator().manual_seed(seed))
+    for tag in turns:
+        with unrepaired() if tag == "off" else contextlib.nullcontext():
+            ms.append(host_ms(femnist, n=20))
+            rounds.append(round_ms(trainer, seed, rounds=6))
+
+    def medians(xs):
+        return " / ".join(
+            f"{statistics.median([x for t, x in zip(turns, xs) if t == tag]):.3f}"
+            for tag in ("on", "off"))
+    say("times", f"FEMNIST step (cohort 10 x 20) and trainer round, the "
+        f"repair on / off, in {len(turns)} turns ({'/'.join(turns)}): "
+        f"step medians of 20 per turn "
+        + ", ".join(f"{x:.3f}" for x in ms) + f" ms (median of turns "
+        f"{medians(ms)} ms); round medians of rounds 2-6 of a run(6) "
+        + ", ".join(f"{x:.3f}" for x in rounds) + f" ms (median of turns "
+        f"{medians(rounds)} ms)")
+    say("determinism", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def counts_want(trace, runs, iters, warm_iters, warm, replayed=()):
+    """The launches of ``runs`` ``FederatedTrainer.run`` calls that made
+    ``trace``: each run's wire measurement (one cold PQ compress), then
+    one compress per executed round (a voided round has no metrics), cold
+    (``iters`` Lloyd iterations) in the first, and in every one without
+    warm start, warm after; ``replayed`` rounds ran twice (executed in a
+    segment the kill cut short, then again after the restore)."""
+    executed = [r.round for r in trace if r.metrics]
+    lloyd = {rd: iters if (not warm or i == 0) else warm_iters
+             for i, rd in enumerate(executed)}
+    again = [rd for rd in replayed if rd in lloyd]
+    return {"lloyd_update": iters * runs + sum(lloyd.values())
+            + sum(lloyd[rd] for rd in again),
+            "pq_quantize": runs + len(executed) + len(again)}
+
+
+def span_seconds(events, name):
+    return [ev["t1"] - ev["t0"] for ev in events
+            if ev.get("type") == "span" and ev.get("name") == name]
+
+
+def step_bytes(ckpt_dir, step):
+    """Bytes on disk of one checkpoint step: its npz, meta and manifest."""
+    return sum(f.stat().st_size
+               for f in Path(ckpt_dir).glob(f"*_{step:08d}.*"))
+
+
+def recovery_pair(tag, make, rounds, seed, every, kill, work, warm):
+    """``run_with_recovery`` of the trainer ``make(plan)`` twice, under
+    its base plan and killed at round ``kill``; every result of the two
+    held bitwise, launch counts exact; snapshot bytes, write and restore
+    times, and the reference's deflated write of the newest snapshot's
+    members. Returns the killed run's snapshot directory and its newest
+    step."""
+    from repro_torch import obs
+    from repro_torch.federated import run_with_recovery
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name in ("unkilled", "killed"):
+        trainer = make(name == "killed")
+        iters = trainer.model.pq.kmeans_iters
+        warm_iters = trainer.model.pq.effective_warm_iters
+        rec = obs.configure(run=f"chip_smoke {tag} {name}")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            state, hist = run_with_recovery(trainer, rounds, seed,
+                                            str(work / name),
+                                            checkpoint_every=every)
+            torch.cuda.synchronize()
+        finally:
+            obs.shutdown()
+        out[name] = (trainer, state, hist, _build.launch_counts(),
+                     rec.events, time.perf_counter() - t0)
+    (ta, sa, ha, ca, _, sec_a), (tb, sb, hb, cb, eb, sec_b) = \
+        out["unkilled"], out["killed"]
+    snaps = sorted(int(p.name[5:13]) for p in (work / "killed").glob(
+        "ckpt_*.npz"))
+    restored = max(s for s in snaps if s < kill)
+    runs_a = -(-rounds // every)
+    want_a = counts_want(ta.last_trace, runs_a, iters, warm_iters, warm)
+    want_b = counts_want(tb.last_trace, runs_a + 1, iters, warm_iters, warm,
+                         replayed=range(restored, kill))
+    restarts = [ev for ev in eb if ev.get("name") == "fault.server_restart"]
+    say("recovery", f"{tag}: {rounds} rounds, a snapshot every {every}; "
+        f"unkilled {sec_a:.2f} s, launches {ca} (want {want_a}); killed at "
+        f"round {kill} ({len(restarts)} restart, restored from the "
+        f"round-{restored} snapshot) {sec_b:.2f} s, launches {cb} (want "
+        f"{want_b})")
+    if ca != want_a or cb != want_b:
+        fail(f"{tag}: launch counts {ca} / {cb} != {want_a} / {want_b}")
+    if len(restarts) != 1 or tb.fault_plan.server_kill_rounds != (kill,):
+        fail(f"{tag}: {len(restarts)} restarts, plan after the run "
+             f"{tb.fault_plan.server_kill_rounds}")
+    same = {
+        "params": all(torch.equal(sa.params[k], sb.params[k])
+                      for k in sa.params),
+        "optimizer state": sa.step == sb.step and all(
+            torch.equal(x, y) if torch.is_tensor(x) else x == y
+            for x, y in zip(flat_leaves(sa.opt_state),
+                            flat_leaves(sb.opt_state))),
+        "history": ha == hb,
+        "trace records": ta.last_trace.records == tb.last_trace.records
+        and len(tb.last_trace.records) == rounds,
+        "flights": ta.last_trace.flights == tb.last_trace.flights,
+    }
+    say("recovery", f"{tag}: killed run bitwise the unkilled one: " + ", "
+        .join(f"{k} {v}" for k, v in same.items()) + "; losses "
+        + " ".join(f"{h['loss']:.5f}" for h in ha if "loss" in h))
+    if not all(same.values()):
+        fail(f"{tag}: the killed run differs from the unkilled one: {same}")
+    saves = span_seconds(eb, "checkpoint.save")
+    restores = span_seconds(eb, "checkpoint.restore")
+    sizes = [step_bytes(work / "killed", s) for s in snaps]
+    t0 = time.perf_counter()
+    with np.load(work / "killed" / f"ckpt_{snaps[-1]:08d}.npz") as z:
+        members = {k: z[k] for k in z.files}
+    deflated = work / "deflated.npz"
+    np.savez_compressed(deflated, **members)
+    deflate_s = time.perf_counter() - t0
+    say("recovery", f"{tag}: the round-{snaps[-1]} snapshot's members "
+        f"deflated, as the reference's savez_compressed writes them: "
+        f"{deflated.stat().st_size} B in {deflate_s * 1e3:.1f} ms (read "
+        f"back included)")
+    say("recovery", f"{tag}: snapshots at rounds {snaps}: "
+        + ", ".join(f"{b} B in {t * 1e3:.1f} ms" for b, t in
+                    zip(sizes, saves[-len(snaps):]))
+        + f" (written {len(saves)} times in the killed run, save "
+        f"{statistics.median(saves) * 1e3:.1f} ms median); restore "
+        + ", ".join(f"{t * 1e3:.1f} ms" for t in restores))
+    return work / "killed", snaps[-1]
+
+
+def flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flat_leaves(tree[k])]
+    return [tree]
+
+
+def phase_recovery(seed, lm):
+    """Kill-and-resume on the card: the femnist example's --chaos
+    --warm-start run at full width (DEFAULT_CHAOS, warm start, error
+    feedback, 9 rounds, a snapshot every 3, the server killed at round 7)
+    and SO NWP at (48, 60) (4 rounds, a snapshot every 2, killed at round
+    3): the killed run bitwise the unkilled one, launch counts exact; a
+    snapshot with one payload byte flipped refuses to restore; an SO Tag
+    TrainState at full width (5000 -> 2000 -> 1000, AdaGrad) saved and
+    restored bitwise. ``lm`` is the SO NWP dataset with its batches drawn
+    ahead."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpointing import (CheckpointError,
+                                           restore_checkpoint,
+                                           save_checkpoint)
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.federated import DEFAULT_CHAOS, FaultPlan
+    from repro_torch.federated.recovery import (state_from_leaves,
+                                                state_leaves)
+    from repro_torch.models.paper_models import SOTagMLP
+    from repro_torch.optim import adagrad
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+
+        def femnist(killed):
+            plan = dataclasses.replace(DEFAULT_CHAOS, server_kill_rounds=(
+                REC_KILL,)) if killed else DEFAULT_CHAOS
+            return make_trainer("cuda", torch.Generator().manual_seed(seed),
+                                fault_plan=plan, warm_start=True,
+                                error_feedback=True)
+        newest, step = recovery_pair("FEMNIST", femnist, REC_ROUNDS, seed,
+                                     REC_EVERY, REC_KILL, work / "femnist",
+                                     warm=True)
+        flipped = work / "flipped"
+        flipped.mkdir()
+        for f in newest.glob(f"*_{step:08d}.*"):
+            shutil.copy(f, flipped / f.name)
+        npz = flipped / f"ckpt_{step:08d}.npz"
+        data = bytearray(npz.read_bytes())
+        data[len(data) // 2] ^= 0x01
+        npz.write_bytes(bytes(data))
+        try:
+            restore_checkpoint(str(flipped), device="cuda")
+        except CheckpointError as e:
+            say("recovery", f"one payload byte of the round-{step} snapshot "
+                f"flipped: CheckpointError ({str(e)[:60]}...)")
+        else:
+            fail("a snapshot with a flipped byte restored")
+
+        def nwp(killed):
+            trainer, _ = so_trainer("nwp", "cuda", lm, NWP_REC, seed)
+            trainer.fault_plan = FaultPlan(
+                server_kill_rounds=(NWP_REC_KILL,) if killed else ())
+            return trainer
+        recovery_pair(f"SO NWP {NWP_REC}", nwp, NWP_REC_ROUNDS, seed,
+                      NWP_REC_EVERY, NWP_REC_KILL, work / "nwp", warm=False)
+
+        gen = torch.Generator().manual_seed(seed)
+        tag = SOTagMLP(TAG_BOW, TAG_D, TAG_TAGS, device="cuda", generator=gen)
+        state = TrainState.create(dict(tag.named_parameters()),
+                                  adagrad(TAG_LR))
+        batch = {"bow": (torch.rand(TAG_B, TAG_BOW, generator=gen) < 0.01)
+                 .float().cuda(),
+                 "tags": (torch.rand(TAG_B, TAG_TAGS, generator=gen) < 0.005)
+                 .long().cuda()}
+        state, _ = make_train_step(tag, adagrad(TAG_LR), quantize=False)(
+            state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(work / "tag"), 1, {"train": {
+            f"{i:04d}": leaf for i, leaf in enumerate(state_leaves(state))}})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = restore_checkpoint(str(work / "tag"), device="cuda")
+        back = state_from_leaves([tree["train"][k] for k in
+                                  sorted(tree["train"])], state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(state.params[k], back.params[k])
+                   for k in state.params) and all(
+            torch.equal(state.opt_state["acc"][k], back.opt_state["acc"][k])
+            for k in state.params) and back.step == state.step == 1 \
+            and back.opt_state["step"] == 1 \
+            and all(p.device.type == "cuda" and p.requires_grad
+                    for p in back.params.values())
+        say("recovery", f"SO Tag TrainState ({TAG_BOW} -> {TAG_D} -> "
+            f"{TAG_TAGS}, AdaGrad, after one step): "
+            f"{step_bytes(work / 'tag', 1)} B saved in {save_s * 1e3:.1f} "
+            f"ms, restored in {restore_s * 1e3:.1f} ms, bitwise: {same}")
+        if not same:
+            fail("the SO Tag TrainState did not come back bitwise")
+    say("recovery", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_health(seed, rounds=HEALTH_ROUNDS):
+    """The femnist example's --chaos --emit-trace run: FederatedTrainer
+    under DEFAULT_CHAOS with obs recording and slo_monitor=HealthMonitor
+    (the default rules and one that must fail, so that the log holds an
+    slo_violation event), the JSONL log written, then the port's inspector
+    in this process on it: the report, --faults and --health (with a
+    --slo rule that must fail) exit 0, the report counts the rounds run,
+    --health grades the failing rule, every event name in the log is
+    registered."""
+    import io
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.federated import DEFAULT_CHAOS
+    from repro_torch.kernels import _build
+    from repro_torch.obs import inspect as inspector
+
+    t_phase = time.perf_counter()
+    rules = list(obs.DEFAULT_SLOS) + [obs.SloRule("impossible", "rounds",
+                                                  ">=", 1000)]
+    trainer = make_trainer("cuda", torch.Generator().manual_seed(seed),
+                           fault_plan=DEFAULT_CHAOS,
+                           slo_monitor=obs.HealthMonitor(rules))
+    rec = obs.configure(run="chip_smoke health", meta={"rounds": rounds})
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    try:
+        trainer.run(rounds, seed)
+        torch.cuda.synchronize()
+    finally:
+        obs.shutdown()
+    counts = _build.launch_counts()
+    want = counts_want(trainer.last_trace, 1, ITERS, WARM_ITERS, warm=False)
+    if counts != want:
+        fail(f"health: launch counts {counts} != {want}")
+    names = {ev["name"] for ev in rec.events if ev.get("type") == "event"}
+    unregistered = sorted(n for n in names if not obs.is_registered_event(n))
+    violations = [ev["args"]["rule"] for ev in rec.events
+                  if ev.get("name") == "slo_violation"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "health.jsonl")
+        rec.write_jsonl(path)
+        outs = {}
+        for flags in ((), ("--faults",), ("--health", "--slo",
+                                          "rounds>=1000")):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = inspector.main([path, *flags])
+            if code != 0:
+                fail(f"health: the inspector {list(flags)} exited {code}")
+            outs[flags] = buf.getvalue()
+    header = outs[()].splitlines()[0]
+    faults = outs[("--faults",)].splitlines()
+    health = outs[("--health", "--slo", "rounds>=1000")].splitlines()
+    say("health", f"{rounds} rounds under DEFAULT_CHAOS, launches {counts} "
+        f"(want {want}); {len(rec.events)} events, event names "
+        f"{sorted(names)}; slo_violation for {violations}; report: "
+        f"'{header}'; faults: '{faults[-1]}'; " + "; ".join(
+            line.strip() for line in health))
+    if f"rounds: {rounds}" not in header:
+        fail(f"health: the report counts other rounds: {header}")
+    if violations != ["impossible"] or unregistered:
+        fail(f"health: slo_violation for {violations}, unregistered event "
+             f"names {unregistered}")
+    if not any(line.strip().startswith("FAIL  rounds>=1000")
+               for line in health):
+        fail("health: --health --slo did not grade the failing rule")
+    say("health", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_autoscale(seed):
+    """The femnist example's --autoscale --fleet mobile at full width:
+    autoscale_run over AUTO_ROUNDS rounds, re-planned every AUTO_INTERVAL
+    by TraceAutoscaler(window=8, max_cohort=64); then again with a bytes
+    budget of half the first segment's measured bytes per round, which
+    must move the downlink to scalarq(bits=8) and so launch
+    scalar_quantize (counted exactly). Every recorded segment trace gives
+    its recorded plan again (the rules are pure)."""
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.federated import (AutoscalePlan, FederatedTrainer,
+                                       TraceAutoscaler, autoscale_run,
+                                       make_policy, mobile_fleet)
+    from repro_torch.kernels import _build
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    t_phase = time.perf_counter()
+    data = make_federated_image_data(num_clients=64, seed=0, device="cuda")
+    pq = PQConfig(num_subvectors=Q, num_clusters=L, kmeans_iters=ITERS)
+    model = FemnistCNN(pq=pq, lam=LAM, client_batch=CLIENT_BATCH,
+                       device="cuda",
+                       generator=torch.Generator().manual_seed(seed))
+
+    def make(plan, seg):
+        return FederatedTrainer(
+            model, sgd(LR), data, cohort=plan.cohort,
+            client_batch=CLIENT_BATCH,
+            fleet=mobile_fleet(64, flaky_fraction=0.3, seed=0),
+            policy=make_policy(plan.policy),
+            downlink_compressor=plan.downlink, seed=seg, device="cuda")
+
+    budget = None
+    for tag in ("unbudgeted", "budgeted"):
+        controller = TraceAutoscaler(window=AUTO_INTERVAL, max_cohort=64,
+                                     bytes_budget_per_round=budget)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = autoscale_run(make, AutoscalePlan(cohort=CLIENTS), AUTO_ROUNDS,
+                            seed, controller=controller,
+                            interval=AUTO_INTERVAL)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        seg_plans = [out["plans"][out["history"][i]["plan"]]
+                     for i in range(0, AUTO_ROUNDS, AUTO_INTERVAL)]
+        for i, trace in enumerate(out["traces"][:-1]):
+            again = controller.recommend(trace, seg_plans[i])
+            nxt = seg_plans[i + 1]
+            if (again.cohort, again.policy, again.downlink) != \
+                    (nxt.cohort, nxt.policy, nxt.downlink) or (
+                    again.moved_from(seg_plans[i])
+                    and again.reason != nxt.reason):
+                fail(f"autoscale: segment {i}'s trace recommends {again}, "
+                     f"the run moved to {nxt}")
+        scalar_runs = [i for i, p in enumerate(seg_plans)
+                       if p.downlink == "scalarq(bits=8)"]
+        want = len(scalar_runs) + sum(
+            1 for t_i in scalar_runs for r in out["traces"][t_i]
+            if r.metrics)
+        say("autoscale", f"{tag} (budget {budget} B/round): {AUTO_ROUNDS} "
+            f"rounds in {sec:.2f} s, launches {counts}; plans: " + "; ".join(
+                f"cohort {p.cohort} {p.policy} downlink "
+                f"{p.downlink or 'dense'} [{p.reason}]" for p in out["plans"])
+            + "; bytes/round per segment "
+            + ", ".join(f"{t.bytes_per_round(AUTO_INTERVAL):.0f}"
+                        for t in out["traces"])
+            + f"; uplink {out['uplink_bytes']} B, downlink "
+            f"{out['downlink_bytes']} B, simulated "
+            f"{out['simulated_seconds']:.1f} s")
+        if not counts.get("lloyd_update") or not counts.get("pq_quantize"):
+            fail(f"autoscale: the PQ kernels did not run: {counts}")
+        if counts.get("scalar_quantize", 0) != want:
+            fail(f"autoscale: scalar_quantize launched "
+                 f"{counts.get('scalar_quantize', 0)} times, want {want}")
+        losses = [h["loss"] for h in out["history"] if "loss" in h]
+        if not np.isfinite(losses).all():
+            fail(f"autoscale: losses {losses}")
+        if budget is None:
+            budget = out["traces"][0].bytes_per_round(AUTO_INTERVAL) / 2
+    if seg_plans[1].downlink != "scalarq(bits=8)" or not want:
+        fail(f"autoscale: the budgeted run's plans {out['plans']} did not "
+             f"move the downlink to scalarq(bits=8)")
+    say("autoscale", f"budgeted run: scalar_quantize launched {want} times "
+        f"(1 per run and per executed round of the scalarq segments "
+        f"{scalar_runs})")
+    say("autoscale", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_payload(model, batch):
@@ -2873,7 +3451,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the text tasks: the clustering kernels' launches on the SO runs, by
     # route
-    so_counts = phase_so_tasks(args.seed)
+    so_counts, lm_data = phase_so_tasks(args.seed)
+    torch.cuda.empty_cache()
+    # runs that survive a crash, report their health and autoscale: each
+    # phase reads its own launch counts
+    phase_determinism(args.seed)
+    phase_recovery(args.seed, lm_data)
+    del lm_data
+    phase_health(args.seed)
+    phase_autoscale(args.seed)
     torch.cuda.empty_cache()
     # the serve prefill: flash_attention's launches, and the PQ kernels at
     # their largest shape (4 problems of 1048576 x 8, L = 16), held on the

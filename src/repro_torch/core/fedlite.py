@@ -26,6 +26,7 @@ LM's training loss (ROADMAP A15).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -68,13 +69,30 @@ def step_generator(seed: int, step: int, device: torch.device,
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms while open: two
+    runs of one step on the same inputs give the same bits, which a
+    resumed run needs (without it, FemnistCNN's convolution backward
+    differed in the last bits from run to run on an H100). The caller's
+    setting is restored on exit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def _grads(model: nn.Module, params: Tensors, batch,
            kw: Dict[str, Any]) -> Tuple[torch.Tensor, Dict, Tensors]:
     """One forward pass of ``model`` driven from ``params`` with the
     keywords ``kw``: (detached loss, the model's metrics, d loss / d
-    params)."""
-    loss, metrics = torch.func.functional_call(model, params, (batch,), kw)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    params), each operation deterministic on the card."""
+    with _deterministic_cudnn():
+        loss, metrics = torch.func.functional_call(model, params, (batch,),
+                                                   kw)
+        grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), metrics, dict(zip(params, grads))
 
 

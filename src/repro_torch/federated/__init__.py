@@ -21,10 +21,20 @@ package measures it, in both directions, with the real wire format.
   faults.py     — the seeded chaos layer (`FaultPlan`, `DEFAULT_CHAOS`).
   topology.py   — `TwoTierTopology`, edge aggregators over clustered
                   client locations.
-
-Not ported yet: ``autoscale.py`` (A13), ``recovery.py`` (A11).
+  recovery.py   — crash-consistent runtime snapshots and
+                  `run_with_recovery`, which survives a `ServerKilled`
+                  bitwise.
+  autoscale.py  — `TraceAutoscaler` / `autoscale_run`: trace-driven
+                  (cohort, policy, downlink codec) moves between segments.
 """
 
+from repro_torch.federated.autoscale import (
+    DOWNLINK_LADDER,
+    AutoscalePlan,
+    TraceAutoscaler,
+    autoscale_run,
+    make_policy,
+)
 from repro_torch.federated.executor import (
     CohortExecutor,
     MeshExecutor,
@@ -56,6 +66,11 @@ from repro_torch.federated.runtime import (
     sample_clients,
     weighted_average,
 )
+from repro_torch.federated.recovery import (
+    restore_runtime,
+    run_with_recovery,
+    snapshot_runtime,
+)
 from repro_torch.federated.scheduler import (
     AsyncBuffer,
     Deadline,
@@ -69,12 +84,15 @@ from repro_torch.federated.trace import RoundRecord, Trace
 from repro_torch.federated import wire
 
 __all__ = [
-    "AsyncBuffer", "ClientFleet", "ClientProfile", "CohortExecutor",
-    "DEFAULT_CHAOS", "Deadline", "DropSlowestK", "FaultInjector",
-    "FaultPlan", "FederatedTrainer", "FullSync", "IDEAL", "MeshExecutor",
-    "RoundRecord", "Scheduler", "ServerKilled", "StackedExecutor", "Trace",
-    "TwoTierTopology", "available_executors", "fedavg_round",
-    "ideal_scheduler", "lognormal_fleet", "make_executor", "make_injector",
-    "mobile_fleet", "register_executor", "run_fedavg", "sample_clients",
-    "uniform_fleet", "validate_fleet", "weighted_average", "wire",
+    "AsyncBuffer", "AutoscalePlan", "ClientFleet", "ClientProfile",
+    "CohortExecutor", "DEFAULT_CHAOS", "DOWNLINK_LADDER", "Deadline",
+    "DropSlowestK", "FaultInjector", "FaultPlan", "FederatedTrainer",
+    "FullSync", "IDEAL", "MeshExecutor", "RoundRecord", "Scheduler",
+    "ServerKilled", "StackedExecutor", "Trace", "TraceAutoscaler",
+    "TwoTierTopology", "autoscale_run", "available_executors",
+    "fedavg_round", "ideal_scheduler", "lognormal_fleet", "make_executor",
+    "make_injector", "make_policy", "mobile_fleet", "register_executor",
+    "restore_runtime", "run_fedavg", "run_with_recovery", "sample_clients",
+    "snapshot_runtime", "uniform_fleet", "validate_fleet",
+    "weighted_average", "wire",
 ]

@@ -27,7 +27,7 @@ of the cut would be different vectors and PQ parity would break. Parameter
 names mirror the reference's keys (``client.conv1_w``, ...); convolution
 weights are OIHW here (HWIO there); dense, embedding and LSTM weights keep
 the reference's (in, out) layout and are applied as ``acts @ W``.
-``from_jax_params`` converts reference params.
+``from_jax_params`` converts reference params, ``to_jax_params`` back.
 """
 
 from __future__ import annotations
@@ -262,6 +262,16 @@ class SOTagMLP(nn.Module):
         return (hits / denom.clamp_min(1)).mean()
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``. The backward must sum a
+    repeated token's rows in a fixed order, so that a step is a function
+    of its inputs bit for bit (a resumed run must be the run never
+    killed): ``F.embedding``'s backward does, on the card (it sorts the
+    indices) and on the CPU, where indexing's backward adds in parallel,
+    in another order from one run to the next."""
+    return F.embedding(tokens, table)
+
+
 class SONwpLSTM(nn.Module):
     """Next-word prediction over (B, S) tokens; the client embeds, runs the
     LSTM over the S positions and projects each hidden state to the cut
@@ -306,7 +316,7 @@ class SONwpLSTM(nn.Module):
         i, f, g, o from one (E+H) -> 4H product (x·Wx + h·Wh + b), the
         forget gate biased by +1, one step per position."""
         cp = self.client
-        x = cp["emb_w"][tokens]                   # (B, S, E)
+        x = _embed(cp["emb_w"], tokens)           # (B, S, E)
         b, s, _ = x.shape
         h = x.new_zeros((b, self.hidden))
         c = x.new_zeros((b, self.hidden))
@@ -350,16 +360,37 @@ class SONwpLSTM(nn.Module):
         return ok.sum() / mask.sum().clamp_min(1)
 
 
-def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]]
+def _is_conv_weight(name: str) -> bool:
+    return name.startswith("conv") and name.endswith("_w")
+
+
+def from_jax_params(params: Mapping[str, Mapping[str, object]]
                     ) -> Dict[str, torch.Tensor]:
     """Reference params ({"client": {...}, "server": {...}} of arrays) of
     any of the three models -> the module's state dict: conv weights HWIO
-    -> OIHW, the rest (dense, embedding, LSTM) as is, (in, out)."""
+    -> OIHW, the rest (dense, embedding, LSTM) as is, (in, out). Arrays
+    become f32 CPU tensors; tensors keep their dtype and device."""
     out = {}
     for part, leaves in params.items():
         for name, value in leaves.items():
-            t = torch.from_numpy(np.array(value, dtype=np.float32))
-            if name.startswith("conv") and name.endswith("_w"):
+            t = value if torch.is_tensor(value) else \
+                torch.from_numpy(np.array(value, dtype=np.float32))
+            if _is_conv_weight(name):
                 t = t.permute(3, 2, 0, 1).contiguous()
             out[f"{part}.{name}"] = t
+    return out
+
+
+def to_jax_params(params: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The inverse of `from_jax_params`: a state dict (``client.conv1_w``,
+    ...) -> the reference's {"client": {...}, "server": {...}} layout,
+    conv weights OIHW -> HWIO (contiguous), the rest as is. The tensors
+    stay where they are, in their dtype."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, t in params.items():
+        part, name = key.split(".", 1)
+        if _is_conv_weight(name):
+            t = t.permute(2, 3, 1, 0).contiguous()
+        out.setdefault(part, {})[name] = t
     return out

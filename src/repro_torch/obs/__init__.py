@@ -1,6 +1,5 @@
-"""Run-wide telemetry: spans, sync-free metrics, exporters, flight frames.
-
-Twin of the part of ``repro/obs`` that the federated layer imports:
+"""Run-wide telemetry: spans, sync-free metrics, exporters, flight frames,
+SLO health and the run inspector (twin of ``repro/obs``).
 
   spans.py   — `span`/`virtual_span`/`event`/`instrument` record host
                wall-clock and the scheduler's simulated clock as parallel
@@ -14,11 +13,14 @@ Twin of the part of ``repro/obs`` that the federated layer imports:
                ``trace_event`` JSON.
   flight.py  — the contribution flight recorder (`FlightFrame` per server
                update on ``Trace.flights``).
-
-The SLO monitor, the inspector CLI and the event-name schema
-(``slo.py``, ``inspect.py``, ``__main__.py``, ``schema.py``) are not
-ported yet (ROADMAP A12/A16); `FederatedTrainer.slo_monitor` is
-duck-typed, as in the reference.
+  slo.py     — declarative windowed SLO rules over trace reductions;
+               `FederatedTrainer(slo_monitor=HealthMonitor())` grades every
+               run and violations become ``slo_violation`` events.
+  inspect.py — ``python -m repro_torch.obs <run.jsonl>``: round tables,
+               percentiles, the byte ledger, ``--faults``, ``--health``
+               (SLO grading, plus ``--slo`` specs) and ``--flight``; the
+               reference's report, character for character.
+  schema.py  — the obs event-name registry (`EVENT_SCHEMAS`).
 
 Typical wiring:
 
@@ -45,6 +47,16 @@ from repro_torch.obs.flight import (
     set_flights,
 )
 from repro_torch.obs.metrics import MetricsBuffer, counter, gauge, histogram
+from repro_torch.obs.schema import EVENT_SCHEMAS, is_registered_event
+from repro_torch.obs.slo import (
+    DEFAULT_SLOS,
+    HealthMonitor,
+    SloResult,
+    SloRule,
+    parse_rule,
+    signals_from_rows,
+    trace_signals,
+)
 from repro_torch.obs.spans import (
     Recorder,
     configure,
@@ -96,9 +108,12 @@ def log_trace(trace, run=None) -> None:
 
 
 __all__ = [
-    "FlightFrame", "MetricsBuffer", "Recorder", "configure", "counter",
-    "current", "enabled", "event", "flights_enabled", "gauge", "histogram",
-    "instrument", "jsonable", "log_frames", "log_trace", "read_jsonl",
-    "read_jsonl_tolerant", "set_flights", "shutdown", "span", "to_perfetto",
-    "virtual_span", "write_jsonl", "write_perfetto",
+    "DEFAULT_SLOS", "EVENT_SCHEMAS", "FlightFrame", "HealthMonitor",
+    "MetricsBuffer", "Recorder", "SloResult", "SloRule", "configure",
+    "counter", "current", "enabled", "event", "flights_enabled", "gauge",
+    "histogram", "instrument", "is_registered_event", "jsonable",
+    "log_frames", "log_trace", "parse_rule", "read_jsonl",
+    "read_jsonl_tolerant", "set_flights", "shutdown", "signals_from_rows",
+    "span", "to_perfetto", "trace_signals", "virtual_span", "write_jsonl",
+    "write_perfetto",
 ]

@@ -790,3 +790,97 @@ def test_so_tag_round_at_l100_on_card():
         wire.wire_bits(pq, 100, 2000) // 8
     r5 = model.recall_at_5(data.eval_batch(np.random.default_rng(1), 256))
     assert 0.0 <= float(r5) <= 1.0
+
+
+def _same_twice(step, state, batch):
+    """Params after ``step`` from one state and batch, run three times:
+    bitwise each time."""
+    first = step(state, batch)[0].params
+    for _ in range(2):
+        again = step(state, batch)[0].params
+        for k in first:
+            assert torch.equal(first[k], again[k]), k
+
+
+@pytest.mark.gpu
+def test_femnist_step_is_bitwise_repeatable_on_card():
+    """A resumed run recomputes rounds: the FedLite step with its cuDNN
+    convolutions must give the same bits every time on the same inputs."""
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(0)
+    model = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=5), lam=1e-4,
+                       client_batch=8, generator=gen)
+    state = TrainState.create(dict(model.named_parameters()), sgd(0.03))
+    batch = {"image": torch.rand((32, 28, 28, 1), generator=gen).to(dev),
+             "label": torch.randint(0, 62, (32,), generator=gen).to(dev)}
+    _same_twice(make_train_step(model, sgd(0.03)), state, batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [16, 160])   # 480 and 4800 tokens
+def test_nwp_step_is_bitwise_repeatable_on_card(rows):
+    """The SO NWP step with Adam at (q, L) = (48, 60), its embedding
+    backward over repeated tokens included, gives the same bits every
+    time (both of F.embedding's backward kernels: below and above its
+    3072-index switch)."""
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.models.paper_models import SONwpLSTM
+    from repro_torch.optim import adam
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(1)
+    model = SONwpLSTM(vocab=300, hidden=64, pq=PQConfig(48, 60,
+                                                        kmeans_iters=3),
+                      lam=1e-3, client_batch=16, generator=gen)
+    state = TrainState.create(dict(model.named_parameters()), adam(0.01))
+    tokens = torch.randint(0, 40, (rows, 30), generator=gen).to(dev)
+    labels = torch.cat([tokens[:, 1:], torch.full((rows, 1), -1,
+                                                  device=dev)], 1)
+    _same_twice(make_train_step(model, adam(0.01)), state,
+                {"tokens": tokens, "labels": labels})
+
+
+@pytest.mark.gpu
+def test_snapshot_round_trip_on_card(tmp_path):
+    """A tree of card tensors (f32, bf16, int32) saved and restored onto
+    the card bitwise; a TrainState through the snapshot layout too."""
+    from repro_torch.checkpointing import restore_checkpoint, save_checkpoint
+    from repro_torch.core.fedlite import TrainState
+    from repro_torch.federated.recovery import (state_from_leaves,
+                                                state_leaves)
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import adam
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(2)
+    tree = {"a": {"f32": torch.randn((64, 33), generator=gen).to(dev),
+                  "bf16": torch.randn(129, generator=gen).to(dev)
+                  .to(torch.bfloat16)},
+            "i": torch.arange(7, dtype=torch.int32, device=dev)}
+    save_checkpoint(str(tmp_path / "t"), 3, tree, extra={"v": 1})
+    back = restore_checkpoint(str(tmp_path / "t"))
+    for got, want in ((back["a"]["f32"], tree["a"]["f32"]),
+                      (back["a"]["bf16"], tree["a"]["bf16"]),
+                      (back["i"], tree["i"])):
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    model = FemnistCNN(generator=gen)
+    state = TrainState.create(dict(model.named_parameters()), adam(0.01))
+    save_checkpoint(str(tmp_path / "s"), 0, {"train": {
+        f"{i:04d}": x for i, x in enumerate(state_leaves(state))}})
+    tree = restore_checkpoint(str(tmp_path / "s"))
+    again = state_from_leaves([tree["train"][k]
+                               for k in sorted(tree["train"])], state)
+    for k, p in state.params.items():
+        assert again.params[k].is_cuda and torch.equal(again.params[k], p)
+    for part in ("m", "v"):
+        for k in state.params:
+            assert torch.equal(again.opt_state[part][k],
+                               state.opt_state[part][k])
+    assert again.step == state.step and again.opt_state["step"] == 0
