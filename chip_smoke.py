@@ -115,6 +115,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                 cut (4 problems of 1048576 x 8), the full-depth logits
                 against the plain route stage by stage, an f32 path check
                 at 4 layers, and the prefill and decode times;
+  8b. lm     -- LM training through launch/train.py, the twin of the
+                reference's training entry point, on one fixed batch of 8
+                sequences of 2048 tokens (one client each), 4 steps a
+                run: Llama-3 8B at full width (d = 4096, 32/8 heads,
+                vocab 128256, bf16, Adam) cut to 6 layers (the main
+                path); Mamba2-1.3B as published, through the CLI's
+                main; Mixtral-8x22B at full width cut to 2 layers
+                (Adafactor, 8 experts top-2, capacity 5120). Each run's
+                step 1 held stage by stage against the plain route on
+                the card (client forward bitwise, lloyd_update and
+                pq_quantize against their plain versions on the cut,
+                codes, z̃, loss), exact launch counts (4 + 1 a step) and
+                routes, falling losses, the step time, tokens/s, peak
+                memory and busy share; then launch/serve.py on
+                Mamba2-1.3B (4 x 2048 prompt, 16 decode steps) and its
+                SSM cache handoff against the forward;
   9. times   -- each kernel's device time next to its plain version's, its
                 bound and, where one PyTorch call computes the same
                 function, that call's time (flash attention through both
@@ -127,7 +143,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 the three clustering kernels at large L: lloyd_update's
                 tiled and pq_quantize's and kmeans_assign's generic route
                 at the SO runs' tiled shapes, lloyd_update's generic route
-                at the largest of its SO shapes.
+                at the largest of its SO shapes; lloyd_update and
+                pq_quantize at the three LM runs' cuts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -138,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -275,6 +293,31 @@ DET_REPEATS = 5
 # the --emit-trace health run, and --autoscale (re-planned every 8 rounds)
 HEALTH_ROUNDS = 6
 AUTO_ROUNDS, AUTO_INTERVAL = 24, 8
+
+# LM training through launch/train.py (lm_runs): 8 sequences of 2048
+# tokens, one client each, on one fixed batch; Llama-3 8B cut to 6 layers
+# (its 32 need ~96 GB of bf16 params and grads and f32 Adam moments),
+# Mixtral-8x22B to 2. The Llama run takes LM_MAIN_STEPS: under the
+# launcher's warm-up (lr·(s+1)/10) its first Adam steps move the bf16
+# weights by about one ulp, rounding noise that lifted the loss at step 2
+# on an H100, so its fall shows only once the rate has grown
+LM_B, LM_S, LM_STEPS, LM_MAIN_STEPS = 8, 2048, 4, 8
+LM_MAIN_LAYERS, LM_MOE_LAYERS = 6, 2
+# step 1, kernel route vs plain route on the same cut: both Lloyd runs sum
+# in other orders, so a near-tie subvector may take the other code (the
+# floor); where the codes agree z̃ differs by at most a bf16 rounding of a
+# centroid; a few flipped codes move the loss by far less than
+# LM_LOSS_RTOL; a random init's CE is near ln(vocab) (the logits' spread
+# adds about half their variance)
+LM_CODES_EQUAL = 0.99
+LM_ZT_TOL = 1e-2
+LM_LOSS_RTOL = 1e-3
+LM_CE_SLACK = 1.5
+# launch/serve.py on Mamba2-1.3B as published: 4 prompts of 2048, 16 steps;
+# its cache handoff is held in bf16 at SERVE_LOGIT_GAP and, in f32 at 4
+# layers, at SSM_HANDOFF_F32 (relative L2 of the logits)
+SSM_SERVE_B, SSM_SERVE_P, SSM_SERVE_GEN = 4, 2048, 16
+SSM_HANDOFF_F32 = 1e-3
 
 
 def fail(msg: str):
@@ -2942,6 +2985,340 @@ def phase_serve_path(seed, prompt):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# LM training through launch/train.py (the main path of slice 7)
+# ---------------------------------------------------------------------------
+
+def lm_runs():
+    """The three LM-training runs: (tag, config, driven through the CLI,
+    steps).
+    main: Llama-3 8B at full width, depth cut to LM_MAIN_LAYERS (the cut
+    after 4 kept, so the server holds 2); SSM: Mamba2-1.3B as published,
+    through ``python -m repro_torch.launch.train``'s ``main``; MoE:
+    Mixtral-8x22B at full width, LM_MOE_LAYERS layers, the cut after 1."""
+    import dataclasses
+    from repro_torch.configs import llama3_8b, mamba2_1p3b, mixtral_8x22b
+    return (("main", dataclasses.replace(llama3_8b.CONFIG,
+                                         num_layers=LM_MAIN_LAYERS), False,
+             LM_MAIN_STEPS),
+            ("SSM", mamba2_1p3b.CONFIG, True, LM_STEPS),
+            ("MoE", dataclasses.replace(mixtral_8x22b.CONFIG,
+                                        num_layers=LM_MOE_LAYERS,
+                                        cut_periods=1), False, LM_STEPS))
+
+
+def lm_hold(tag, cfg, seed, dev="cuda"):
+    """Step 1 of an LM run, stage by stage: the kernel route (PQ backend
+    "auto": lloyd_update and pq_quantize) against the plain route (PQ
+    backend "torch") on the card, from the run's own params and batch.
+    The client forward bitwise; both kernels against their plain versions
+    on the cut's groups (the path's seeds and final centroids); the two
+    routes' codes equal on at least LM_CODES_EQUAL of the subvectors, z̃
+    within LM_ZT_TOL·(1 + |z̃|) where they agree; the loss within
+    LM_LOSS_RTOL; the step-1 CE within LM_CE_SLACK of ln(vocab); a finite,
+    nonzero gradient norm. Returns (the step-1 loss, the kernels' max
+    |err|)."""
+    import dataclasses
+    import math
+    from repro_torch.core import fedlite
+    from repro_torch.core import kmeans as km
+    from repro_torch.core.quantizer import _to_groups, quantize
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import make_model
+
+    model = make_model(cfg)
+    plain = make_model(dataclasses.replace(cfg, pq_backend="torch"))
+    pq = model.pq
+    params = model.init(torch.Generator(dev).manual_seed(seed), dev)
+    params = fedlite.nest_like(params, {
+        k: v.requires_grad_() for k, v in fedlite.flat_params(params).items()})
+    batch = train.make_batch(cfg, train.step_rng(seed, 0), LM_B, LM_S, dev)
+    with torch.no_grad():
+        acts = model.client_forward(params["client"], batch)[0]
+        acts_p = plain.client_forward(params["client"], batch)[0]
+        if not torch.equal(acts, acts_p):
+            fail(f"lm {tag}: the client forward differs between the routes")
+        del acts_p
+        torch.cuda.synchronize()
+        launched = dict(_build.launch_counts())
+        qb_p = quantize(acts, plain.pq)
+        torch.cuda.synchronize()
+        if _build.launch_counts() != launched:
+            fail(f"lm {tag}: the plain route launched a kernel")
+        qb = quantize(acts, pq)
+        groups = _to_groups(acts, pq)
+        seeds = km._init_centroids(groups, pq.num_clusters)
+        cents = km.batched_lloyd(groups, pq.num_clusters, pq.kmeans_iters,
+                                 chunk=pq.kmeans_chunk, backend="cuda")
+        if not torch.equal(cents.to(qb.codebooks.dtype),
+                           qb.codebooks.reshape(cents.shape)):
+            fail(f"lm {tag}: the re-run Lloyd iterations differ from the "
+                 f"path's")
+        w = torch.ones(groups.shape[:2], device=groups.device)
+        lloyd_err = max(
+            check_lloyd(f"lm {tag} cut, seeds", groups, seeds, None, w,
+                        None)[0],
+            check_lloyd(f"lm {tag} cut, final", groups, cents, None, w,
+                        None)[0])
+        pq_err = check_pq(f"lm {tag} cut", groups, cents)[0]
+        del groups, w, seeds, cents
+        same = (qb.codes == qb_p.codes).reshape(acts.shape[0], -1)
+        share, n_sub = float(same.float().mean()), same.numel()
+        zk = _to_groups(qb.dequantized, pq).float()
+        zp = _to_groups(qb_p.dequantized, pq).float()
+        zt_gap = float(torch.where(same.unsqueeze(-1),
+                                   (zk - zp).abs() / (1 + zp.abs()),
+                                   0.0).max())
+        del zk, zp, same, qb, qb_p, acts
+        loss_p, m_p = plain.loss(params, batch)
+    loss, m, grads = fedlite._grads(model, params, batch, {})
+    gnorm = math.sqrt(sum(float(g.float().square().sum())
+                          for g in grads.values()))
+    del grads, params, batch
+    torch.cuda.empty_cache()
+    ce, ln_v = float(m["ce"]), math.log(cfg.vocab_size)
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    say("lm", f"{tag} step 1, kernel route vs plain route: client forward "
+        f"bitwise; codes equal on {share:.4%} of {n_sub} subvectors (floor "
+        f"{LM_CODES_EQUAL:.0%}); z̃ within {zt_gap:.3e}·(1 + |z̃|) where "
+        f"they agree (bound {LM_ZT_TOL}); loss {float(loss):.6f} vs "
+        f"{float(loss_p):.6f} (relative {rel:.3e}, bound {LM_LOSS_RTOL}); "
+        f"pq distortion {float(m['pq_distortion']):.6f} vs "
+        f"{float(m_p['pq_distortion']):.6f}; ce {ce:.4f}, ln(vocab) "
+        f"{ln_v:.4f}; aux {float(m['aux']):.6f}; grad norm {gnorm:.4e}")
+    if not share >= LM_CODES_EQUAL:
+        fail(f"lm {tag}: codes equal on only {share:.4%}")
+    if not zt_gap <= LM_ZT_TOL:
+        fail(f"lm {tag}: z̃ off by {zt_gap} on shared codes")
+    if not rel <= LM_LOSS_RTOL:
+        fail(f"lm {tag}: step-1 loss off by {rel} (relative)")
+    if not abs(ce - ln_v) <= LM_CE_SLACK:
+        fail(f"lm {tag}: step-1 ce {ce} far from ln(vocab) {ln_v}")
+    if not (math.isfinite(gnorm) and gnorm > 0):
+        fail(f"lm {tag}: grad norm {gnorm}")
+    return float(loss), {"lloyd_update": lloyd_err, "pq_quantize": pq_err}
+
+
+def lm_run(tag, cfg, via_cli, seed, steps, dev="cuda"):
+    """One LM-training run of ``steps`` steps, every step on step 0's
+    batch (chip_smoke swaps the launcher's ``step_rng`` for the run), the
+    last one profiled: through the CLI's ``main`` where ``via_cli``, else
+    ``train(cfg, args)``. The launch counts are read around the run.
+    Returns (counts, routes, the run's history, peak bytes, the profiled
+    step's kernel times)."""
+    import numpy as np_
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    real_train, real_rng = train.train, train.step_rng
+    out, lines = {}, []
+
+    def run(begin):
+        def fixed_rng(seed_, step):
+            if step == steps - 1:
+                begin()
+            return np_.random.default_rng([seed_ + 1, 0])
+
+        def recorded(*a, **kw):
+            out["result"] = real_train(*a, **kw)
+            return out["result"]
+        argv = ["--arch", cfg.name, "--steps", str(steps), "--batch",
+                str(LM_B), "--seq", str(LM_S), "--device", str(dev),
+                "--seed", str(seed), "--log-every", "1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        train.train, train.step_rng = recorded, fixed_rng
+        try:
+            with route_spy() as seen:
+                if via_cli:
+                    with contextlib.redirect_stdout(io.StringIO()) as buf:
+                        train.main(argv)
+                    lines.extend(buf.getvalue().splitlines())
+                else:
+                    train.train(cfg, train.parse_args(argv),
+                                log=lines.append)
+            torch.cuda.synchronize()
+        finally:
+            train.train, train.step_rng = real_train, real_rng
+        out["counts"] = _build.launch_counts()
+        out["routes"] = sorted(set(seen))
+        out["peak"] = torch.cuda.max_memory_allocated()
+
+    per_kernel = phase_profile(f"lm {tag}", run, 1, "step", opens=True)
+    for line in lines:
+        say("lm", f"{tag}: {line}")
+    _, hist = out.pop("result")
+    return out["counts"], out["routes"], hist, out["peak"], per_kernel
+
+
+def phase_lm_train(seed, dev="cuda"):
+    """The three LM-training runs of lm_runs(): each one's step 1 held
+    stage by stage (lm_hold), then the run (lm_run) with exact launch
+    counts and routes, finite losses that fall on the fixed batch, the
+    step-1 loss of the run equal to the hold's within LM_LOSS_RTOL, the
+    step time (median of steps 2..N−1, host clock with a synchronize),
+    tokens/s, peak memory and the busy share of the profiled last step.
+    Then the serve of Mamba2-1.3B (phase_ssm_serve). Returns (the main
+    run's launch counts, the kernels' max |err| at the three cuts)."""
+    import math
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main_counts, errs = {}, {}
+    for tag, cfg, via_cli, steps in lm_runs():
+        t0 = time.perf_counter()
+        loss1, e = lm_hold(tag, cfg, seed, dev)
+        hold_s = time.perf_counter() - t0
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        t0 = time.perf_counter()
+        counts, routes, hist, peak, _ = lm_run(tag, cfg, via_cli, seed,
+                                               steps, dev)
+        run_s = time.perf_counter() - t0
+        iters = 4   # launch.specs.default_pq's Lloyd iterations
+        want = {"lloyd_update": iters * steps, "pq_quantize": steps}
+        losses = [float(h["loss"]) for h in hist]
+        secs = [h["seconds"] for h in hist]
+        step_s = statistics.median(secs[1:-1])
+        say("lm", f"{tag}: {cfg.name}, {cfg.num_layers} layers (cut after "
+            f"{cfg.cut_periods * cfg.period}), d={cfg.d_model}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}, {cfg.optimizer}; {LM_B} x "
+            f"{LM_S} tokens, one client a sequence; launches {counts} "
+            f"(want {want}), routes {routes}; losses "
+            f"{[round(x, 4) for x in losses]}; step times "
+            f"{[round(s * 1e3, 1) for s in secs]} ms (step 1 first, the "
+            f"last profiled)")
+        say("times", f"lm {tag}: step {step_s * 1e3:.3f} ms (median of "
+            f"steps 2..{steps - 1}, host clock + synchronize), "
+            f"{LM_B * LM_S / step_s:.0f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; step-1 hold {hold_s:.1f} s, run "
+            f"{run_s:.1f} s")
+        if counts != want:
+            fail(f"lm {tag}: launch counts {counts} != {want}")
+        if routes != [("lloyd_update", "d8"), ("pq_quantize", "d8")]:
+            fail(f"lm {tag}: routes {routes}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"lm {tag}: losses {losses} not finite and falling")
+        if not abs(losses[0] - loss1) <= LM_LOSS_RTOL * abs(loss1):
+            fail(f"lm {tag}: the run's step-1 loss {losses[0]} differs "
+                 f"from the hold's {loss1}")
+        say("lm", f"{tag}: the run's step-1 loss "
+            f"{'equals' if losses[0] == loss1 else 'is within bound of'} "
+            f"the hold's kernel-route loss")
+        if tag == "main":
+            main_counts = counts
+        del hist
+        torch.cuda.empty_cache()
+    phase_ssm_serve(seed, dev)
+    return main_counts, errs
+
+
+def phase_ssm_serve(seed, dev="cuda"):
+    """``launch/serve.py`` on Mamba2-1.3B as published (SSM_SERVE_B
+    prompts of SSM_SERVE_P tokens with the PQ uplink, SSM_SERVE_GEN decode
+    steps): the launch counts (4 lloyd_update + 1 pq_quantize, in the
+    prefill); then the SSM cache handoff (``handoff_gap``) at the
+    published config in bf16 within SERVE_LOGIT_GAP, and in f32 at 4
+    layers within SSM_HANDOFF_F32. The prefill's length is a multiple of
+    the chunk: at any other length the scan runs one chunk of the whole
+    prompt (the reference's rule), whose decay sums in bf16 lose their
+    precision (a gap of 1.356 at P − 1 on an H100)."""
+    import dataclasses
+    from repro_torch.configs import mamba2_1p3b
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    cfg = mamba2_1p3b.CONFIG
+    B, P = SSM_SERVE_B, SSM_SERVE_P
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        serve.main(["--arch", cfg.name, "--batch", str(B), "--prompt-len",
+                    str(P), "--gen", str(SSM_SERVE_GEN), "--seed", str(seed),
+                    "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    for line in buf.getvalue().splitlines():
+        say("lm", f"serve {cfg.name}: {line}")
+    want = {"lloyd_update": 4, "pq_quantize": 1}
+    say("lm", f"serve {cfg.name}: launches {counts} (want {want}); "
+        f"{wall:.1f} s in all")
+    if counts != want:
+        fail(f"ssm serve: launch counts {counts} != {want}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                num_layers=4, cut_periods=2)
+    for c, bound_ in ((cfg, SERVE_LOGIT_GAP), (cfg32, SSM_HANDOFF_F32)):
+        n, gap, finite = handoff_gap(c, seed, B, P, dev)
+        say("lm", f"serve {cfg.name}: SSM cache handoff, {c.num_layers} "
+            f"layers {c.dtype}: prefill({n}) + one decode step vs the "
+            f"forward of {P} tokens at position {n}: logits relative L2 "
+            f"gap {gap:.3e} (bound {bound_}), finite {finite}")
+        if not (finite and gap <= bound_):
+            fail(f"ssm serve: handoff gap {gap} ({c.dtype})")
+
+
+def handoff_gap(cfg, seed, B, P, dev):
+    """(n, relative L2 gap, finite): the logits of a prefill of n = P −
+    ssm_chunk tokens and one decode step at n against the train-mode
+    forward of P tokens at position n, random weights from ``seed``, no
+    uplink."""
+    from repro_torch.launch.specs import make_model
+
+    model = make_model(cfg)
+    n = P - cfg.ssm_chunk
+    with torch.inference_mode():
+        params = model.init(torch.Generator(dev).manual_seed(seed), dev)
+        toks = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                             generator=torch.Generator(dev)
+                             .manual_seed(seed + 1))
+        batch = {"tokens": toks}
+        acts = model.client_forward(params["client"], batch)[0]
+        x = model.server_forward(params["server"], acts, batch)[0]
+        lg_full = model.logits(params, x[:, n:n + 1])[:, 0]
+        del acts, x
+        caches = model.init_caches(B, P, dev)
+        _, caches = model.prefill(params, {"tokens": toks[:, :n]}, caches)
+        lg_dec = model.decode_step(params, caches, toks[:, n:n + 1],
+                                   n)[0][:, 0]
+        gap = rel_l2(lg_dec, lg_full)
+        finite = bool(torch.isfinite(lg_dec).all())
+        del params, caches
+    torch.cuda.empty_cache()
+    return n, gap, finite
+
+
+def time_lm_pq(gen, counts, errs):
+    """lloyd_update and pq_quantize at the LM runs' cuts (bf16, L = 16,
+    grouped as the quantizer groups them: 8 problems of (d/8)·2048 rows
+    of 8); the main run's cut gives the kernels line's two entries
+    ("<kernel>/lm_train", with the main run's launches)."""
+    dev = torch.device("cuda")
+    entries = []
+    # every run launches the same per step (phase_lm_train checks it)
+    per_step = {k: v // LM_MAIN_STEPS for k, v in counts.items()}
+    for tag, cfg, _, _ in lm_runs():
+        n = cfg.d_model // 8 * LM_S
+        x = torch.randn((LM_B, n, 8), generator=gen).to(dev, torch.bfloat16)
+        c = torch.randn((LM_B, 16, 8), generator=gen).to(dev)
+        got = time_pq_pair(f"the lm {tag} cut", x, c, per_step, "step")
+        if tag == "main":
+            for name, src, replaces in (
+                    ("lloyd_update", "lloyd_update.cu",
+                     "src/repro/kernels/lloyd_update.py:87"),
+                    ("pq_quantize", "pq_quantize.cu",
+                     "src/repro/kernels/pq_quantize.py:55")):
+                k_ms, p_ms, b_ms, b_by = got[name]
+                entries.append({
+                    "name": f"{name}/lm_train", "route": "cuda",
+                    "source": f"src/repro_torch/csrc/{src}",
+                    "replaces": replaces, "launches": counts.get(name, 0),
+                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del x, c
+    return entries
+
 def phase_profile(tag, run, n=3, unit="step", opens=False):
     """Device busy share: CUDA kernel time over wall time in a profiled
     window of ``n`` units. The window is all of ``run()``, or, with
@@ -3139,41 +3516,48 @@ def time_flash(gen, counts, errs):
             "library_ms": lib_ms}
 
 
-def time_serve_pq(gen, serve_counts):
-    """lloyd_update and pq_quantize at the serve prefill's cut, grouped as
-    the quantizer groups it (4 problems of 1048576 x 8, L = 16, no
-    weights, no mask), with x in f32 and in bf16 (the serve path's):
-    device time beside the bound and the plain version, and the launches
-    per prefill."""
+def time_pq_pair(where, x, c, launches, unit):
+    """lloyd_update and pq_quantize on x (P, N, D) with the codebook c,
+    no weights, no mask: each one's device time (CUDA graph) beside its
+    plain version's (eager), its bound and ``launches[name]`` launches a
+    ``unit``, printed; returns {name: (ms, plain ms, bound ms, bound by)}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lloyd_update import (lloyd_update_kernel,
                                                   row_route)
     from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 
+    l = c.shape[1]
+    rows = [("lloyd_update", lambda: lloyd_update_kernel(x, None, c),
+             lambda: ref.lloyd_update_ref(x, None, c), lloyd_work(x, l)),
+            ("pq_quantize", lambda: pq_quantize_kernel(x, c),
+             lambda: ref.pq_quantize_ref(x, c), pq_work(x, l))]
+    out = {}
+    for name, kern, plain, (nb, flops) in rows:
+        k_ms = device_ms(kern, calls=20, reps=10)
+        p_ms = eager_ms(plain, calls=5)
+        b_ms, b_by = bound(nb, flops)
+        n = launches.get(name, 0)
+        say("times", f"{name} at {where} ({tuple(x.shape)} {x.dtype}, L = "
+            f"{l}, route {row_route(x, l)}): kernel {k_ms * 1e3:.2f} us "
+            f"(device, CUDA graph), plain {p_ms * 1e3:.2f} us; bound "
+            f"{b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.1f} MB, "
+            f"{flops / 1e6:.1f} MOP), {b_ms / k_ms:.1%} of it reached; {n} "
+            f"launches per {unit}, {n * k_ms * 1e3:.2f} us per {unit} "
+            f"({n * (k_ms - b_ms) * 1e3:.2f} us above the bound)")
+        out[name] = (k_ms, p_ms, b_ms, b_by)
+    return out
+
+
+def time_serve_pq(gen, serve_counts):
+    """lloyd_update and pq_quantize at the serve prefill's cut, grouped as
+    the quantizer groups it (4 problems of 1048576 x 8, L = 16, no
+    weights, no mask), with x in f32 and in bf16 (the serve path's)."""
     dev = torch.device("cuda")
     p, n, d = SERVE_B, SERVE_PQ_ROWS, SERVE_PQ_D
     x32 = torch.randn((p, n, d), generator=gen).to(dev)
     c = torch.randn((p, SERVE_PQ_L, d), generator=gen).to(dev)
     for x in (x32, x32.to(torch.bfloat16)):
-        rows = [("lloyd_update", lambda: lloyd_update_kernel(x, None, c),
-                 lambda: ref.lloyd_update_ref(x, None, c),
-                 *lloyd_work(x, SERVE_PQ_L)),
-                ("pq_quantize", lambda: pq_quantize_kernel(x, c),
-                 lambda: ref.pq_quantize_ref(x, c), *pq_work(x, SERVE_PQ_L))]
-        for name, kern, plain, nb, flops in rows:
-            k_ms = device_ms(kern, calls=20, reps=10)
-            p_ms = eager_ms(plain, calls=10)
-            b_ms, b_by = bound(nb, flops)
-            launches = serve_counts.get(name, 0)
-            say("times", f"{name} at the serve cut ({p} x {n} x {d} "
-                f"{x.dtype}, L = {SERVE_PQ_L}, route "
-                f"{row_route(x, SERVE_PQ_L)}): kernel {k_ms * 1e3:.2f} us "
-                f"(device, CUDA graph), plain {p_ms * 1e3:.2f} us; bound "
-                f"{b_ms * 1e3:.2f} us by {b_by} ({nb / 1e6:.1f} MB, "
-                f"{flops / 1e6:.1f} MOP), {b_ms / k_ms:.1%} of it reached; "
-                f"{launches} launches per prefill, "
-                f"{launches * k_ms * 1e3:.2f} us per prefill "
-                f"({launches * (k_ms - b_ms) * 1e3:.2f} us above the bound)")
+        time_pq_pair("the serve cut", x, c, serve_counts, "prefill")
 
 
 def assign_work(x, l):
@@ -3469,9 +3853,15 @@ def main(argv=None) -> int:
     errs["flash_attention"] = max(errs["flash_attention"], layer_err)
     for kernel, e in pq_errs.items():
         errs[kernel] = max(errs[kernel], e)
+    torch.cuda.empty_cache()
+    # LM training through launch/train.py: the main path of this slice
+    # (lloyd_update's and pq_quantize's launches in the Llama run), the
+    # SSM and MoE runs, and the Mamba2 serve
+    lm_counts, lm_errs = phase_lm_train(args.seed)
     kernels = phase_times(gen, counts, errs, codes, words, serve,
                           assign_counts)
     kernels += time_large_l(gen, so_counts, errs)
+    kernels += time_lm_pq(gen, lm_counts, lm_errs)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

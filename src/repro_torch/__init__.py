@@ -11,10 +11,11 @@ virtual-clock scheduler, the wire codec and the ``obs`` slice they use),
 on the FedLite train step (``models.paper_models.FemnistCNN`` +
 ``core.fedlite.make_train_step`` / ``make_weighted_step``) with the
 compressed downlink and codebook warm start (``core.compressors``), the
-k-means entry point (``core.kmeans``), and split serving of the dense
-transformer
-(``launch.serve``: ``models.transformer.TransformerLM`` with the
-``llama3_8b`` config, prefill with the PQ uplink at the cut, then decode).
+k-means entry point (``core.kmeans``), the paper's text tasks, crash
+recovery, run health and autoscaling; and the LM zoo: FedLite split
+training (``launch.train``) and split serving (``launch.serve``) of all
+ten ``configs`` through ``models.transformer.TransformerLM`` (dense, MoE,
+SSM and hybrid blocks, audio codebooks and vision inputs).
 Every TPU kernel of the JAX package has its CUDA C++ counterpart for
 ``sm_90a`` (``csrc/``, built with nvcc at first use and bound with ctypes;
 see ``kernels/_build.py``): ``lloyd_update``, ``pq_quantize``,

@@ -5,11 +5,8 @@ Every architecture the port runs has a ``configs/<id>.py`` exporting
 ``CONFIG`` (the exact published shape) and ``SMOKE_CONFIG`` (a reduced
 variant of the same family, for the CPU tests). The fields, their defaults
 and the derived properties are the reference's, value for value;
-``compute_dtype`` returns a ``torch.dtype``.
-
-``get_arch`` resolves the architectures the port has; the other ids of
-``ARCH_IDS`` raise ``NotImplementedError`` (ROADMAP A15: their families --
-MoE, SSM, hybrid, vision and audio -- are not ported yet).
+``compute_dtype`` returns a ``torch.dtype``. ``get_arch`` resolves every
+id of ``ARCH_IDS``.
 """
 
 from __future__ import annotations
@@ -193,18 +190,11 @@ ARCH_IDS = [
     "command_r_35b",
 ]
 
-# the architectures whose config module the port has
-PORTED_ARCH_IDS = ("llama3_8b",)
-
 
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
-    """Load a ported architecture config by id (also accepts '-' for '_')."""
+    """Load an architecture config by id (also accepts '-' for '_')."""
     arch_id = arch_id.replace("-", "_")
-    if arch_id not in PORTED_ARCH_IDS:
-        if arch_id in ARCH_IDS:
-            raise NotImplementedError(
-                f"{arch_id}: not ported yet (ROADMAP A15); the port has "
-                f"{', '.join(PORTED_ARCH_IDS)}")
+    if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; known: "
                          f"{', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")

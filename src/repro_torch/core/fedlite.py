@@ -6,10 +6,15 @@ backward -> client backward -> one optimizer update of client and server.
 ``quantize=False`` is SplitFed, which is exactly mini-batch SGD.
 
 The reference's step is a pure jitted function of a ``TrainState`` pytree;
-here the state holds a dict of parameter tensors, the model is driven from
-it with ``torch.func.functional_call``, and the step returns a new state
-(out of place, as the reference's ``donate=False`` step does). PyTorch runs
-eagerly; there is nothing to compile.
+here the state holds the parameter tensors, and the step returns a new
+state (out of place, as the reference's ``donate=False`` step does).
+PyTorch runs eagerly; there is nothing to compile. Two kinds of model
+take the steps: an ``nn.Module`` whose forward is its loss (the paper's
+models), driven from a flat dict of its named parameters with
+``torch.func.functional_call``; and a model with a ``loss(params, batch,
+...)`` method over nested dicts of tensors (``TransformerLM``), whose
+state keeps the reference's nested layout. Optimizers see the nested
+params as one flat dict keyed by '/'-joined paths.
 
 ``step_key`` (an int seed) makes the model's downlink codec round
 stochastically: step s draws from a ``torch.Generator`` on the batch's
@@ -20,15 +25,15 @@ step.
 
 ``make_weighted_step`` is the per-contribution staleness-weighted update
 (FedBuff) that the trainer's ``AsyncBuffer`` flushes run; ``comm_report``
-is the paper's per-client wire-bit accounting. The eval step waits for the
-LM's training loss (ROADMAP A15).
+is the paper's per-client wire-bit accounting. ``make_eval_step`` is the
+LM's CE and masked accuracy of the uncompressed forward.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,19 +47,41 @@ from repro_torch.optim import Optimizer
 Tensors = Dict[str, torch.Tensor]
 
 
+def flat_params(params: Mapping[str, Any], prefix: str = "") -> Tensors:
+    """The tensors of a (possibly nested) dict of params, keyed by
+    '/'-joined paths in key order; a flat dict maps to itself."""
+    out: Tensors = {}
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            out.update(flat_params(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def nest_like(template: Mapping[str, Any], flat: Tensors,
+              prefix: str = "") -> Dict[str, Any]:
+    """``flat``'s tensors in ``template``'s nesting (empty dicts kept)."""
+    return {k: nest_like(v, flat, f"{prefix}{k}/") if isinstance(v, Mapping)
+            else flat[prefix + k] for k, v in template.items()}
+
+
 @dataclasses.dataclass
 class TrainState:
-    params: Tensors
+    params: Dict[str, Any]
     opt_state: Any
     step: int
 
     @classmethod
-    def create(cls, params: Tensors, optimizer: Optimizer) -> "TrainState":
-        """Starts from copies of ``params`` (e.g. a module's
-        ``named_parameters()``), which the steps never write to."""
-        own = {k: v.detach().clone().requires_grad_() for k, v in
-               dict(params).items()}
-        return cls(params=own, opt_state=optimizer.init(own), step=0)
+    def create(cls, params: Mapping[str, Any],
+               optimizer: Optimizer) -> "TrainState":
+        """Starts from copies of ``params`` (a module's
+        ``named_parameters()``, or a ``TransformerLM``'s nested params),
+        which the steps never write to."""
+        own = nest_like(params, {k: v.detach().clone().requires_grad_()
+                                 for k, v in flat_params(params).items()})
+        return cls(params=own, opt_state=optimizer.init(flat_params(own)),
+                   step=0)
 
 
 def step_generator(seed: int, step: int, device: torch.device,
@@ -84,27 +111,35 @@ def _deterministic_cudnn():
         torch.backends.cudnn.deterministic = saved
 
 
-def _grads(model: nn.Module, params: Tensors, batch,
+def _grads(model, params: Dict[str, Any], batch,
            kw: Dict[str, Any]) -> Tuple[torch.Tensor, Dict, Tensors]:
     """One forward pass of ``model`` driven from ``params`` with the
     keywords ``kw``: (detached loss, the model's metrics, d loss / d
-    params), each operation deterministic on the card."""
+    params as a flat dict), each operation deterministic on the card."""
+    flat = flat_params(params)
     with _deterministic_cudnn():
-        loss, metrics = torch.func.functional_call(model, params, (batch,),
-                                                   kw)
-        grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), metrics, dict(zip(params, grads))
+        if isinstance(model, nn.Module):
+            loss, metrics = torch.func.functional_call(model, params,
+                                                       (batch,), kw)
+        else:
+            loss, metrics = model.loss(params, batch, **kw)
+        # a parameter the loss does not reach (the unused ln2 of an SSM
+        # block without an FFN) gets zeros, as under jax.grad
+        grads = torch.autograd.grad(loss, list(flat.values()),
+                                    allow_unused=True, materialize_grads=True)
+    return loss.detach(), metrics, dict(zip(flat, grads))
 
 
 def _apply(optimizer: Optimizer, state: TrainState,
            grads: Tensors) -> TrainState:
-    """The state after one optimizer update by ``grads``."""
-    updates, opt_state = optimizer.update(grads, state.opt_state,
-                                          state.params)
+    """The state after one optimizer update by ``grads`` (flat)."""
+    flat = flat_params(state.params)
+    updates, opt_state = optimizer.update(grads, state.opt_state, flat)
     with torch.no_grad():
         params = {k: (p + updates[k]).requires_grad_()
-                  for k, p in state.params.items()}
-    return TrainState(params, opt_state, state.step + 1)
+                  for k, p in flat.items()}
+    return TrainState(nest_like(state.params, params), opt_state,
+                      state.step + 1)
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, *,
@@ -151,7 +186,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, *,
                 "cut_state is not supported with microbatches > 1")
         else:
             g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
-                     for k, p in state.params.items()}
+                     for k, p in flat_params(state.params).items()}
             loss = 0.0
             for i in range(microbatches):
                 mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
@@ -161,7 +196,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, *,
                     g_sum[k] += g[k].float()
                 loss = loss + mloss
             grads = {k: (g_sum[k] / microbatches).to(p.dtype)
-                     for k, p in state.params.items()}
+                     for k, p in flat_params(state.params).items()}
             loss = loss / microbatches
         return _apply(optimizer, state, grads), dict(metrics, loss=loss)
 
@@ -220,7 +255,7 @@ def make_weighted_step(model: nn.Module, optimizer: Optimizer, *,
         w = torch.as_tensor(weights, dtype=torch.float32, device=device)
         wc = w / len(parts)
         ghat = {k: torch.zeros_like(p, dtype=torch.float32)
-                for k, p in state.params.items()}
+                for k, p in flat_params(state.params).items()}
         losses, metrics, cuts = [], [], []
         for c, batch in enumerate(parts):
             kw = {"quantize": quantize}
@@ -236,7 +271,8 @@ def make_weighted_step(model: nn.Module, optimizer: Optimizer, *,
                 cuts.append(m.pop("cut_state"))
             losses.append(loss)
             metrics.append(m)
-        grads = {k: ghat[k].to(p.dtype) for k, p in state.params.items()}
+        grads = {k: ghat[k].to(p.dtype)
+                 for k, p in flat_params(state.params).items()}
         out = {k: torch.stack([m[k] for m in metrics]).mean(0)
                if torch.is_tensor(metrics[0][k])
                else sum(m[k] for m in metrics) / len(metrics)
@@ -248,6 +284,31 @@ def make_weighted_step(model: nn.Module, optimizer: Optimizer, *,
         return _apply(optimizer, state, grads), out
 
     return weighted_step
+
+
+def make_eval_step(model) -> Callable:
+    """``eval_step(params, batch) -> {"ce", "accuracy"}`` for a
+    ``TransformerLM``: the uncompressed forward's mean CE and its top-1
+    accuracy over the valid (>= 0) labels, the codebook axis of an audio
+    batch's (B, K, S) labels moved behind the sequence. No gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        acts, _, _ = model.client_forward(params["client"], batch,
+                                          mode="train")
+        x, _, _ = model.server_forward(params["server"], acts, batch,
+                                       mode="train")
+        lg = model.logits(params, x)
+        ce = model.token_ce(lg, batch["labels"])
+        pred = lg.argmax(-1)
+        labels = batch["labels"]
+        if model.cfg.num_codebooks > 1:
+            labels = labels.movedim(1, 2)
+        mask = labels >= 0
+        acc = ((pred == labels) & mask).sum() / mask.sum().clamp_min(1)
+        return {"ce": ce, "accuracy": acc}
+
+    return eval_step
 
 
 # ---------------------------------------------------------------------------

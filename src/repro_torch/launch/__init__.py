@@ -1,1 +1,2 @@
-"""Entry points of the port (twin of ``repro/launch``): ``serve``."""
+"""Entry points of the port (twin of ``repro/launch``): ``train`` and
+``serve``."""

@@ -3,7 +3,9 @@
 The client runs the embedding and the first ``cut_periods`` periods of the
 prompt, compresses the cut-layer activation with the paper's grouped PQ
 (one client per sequence) and the server completes the prefill; then a
-decode loop runs against the KV caches. It runs on the card unless
+decode loop runs against the KV and SSM caches. Every architecture of the
+zoo serves (an audio model's prompts and tokens are (B, K, ·) grids over
+its K codebooks). It runs on the card unless
 ``--device cpu`` asks for the CPU (the tests do, with ``--smoke``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \\
@@ -50,7 +52,9 @@ def main(argv=None) -> int:
     data_gen = torch.Generator(device).manual_seed(args.seed + 1)
     with torch.inference_mode():
         params = model.init(init_gen, device)
-        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=data_gen,
+        shape = (B, cfg.num_codebooks, P) if cfg.num_codebooks > 1 \
+            else (B, P)
+        prompt = torch.randint(0, cfg.vocab_size, shape, generator=data_gen,
                                device=device)
         caches = model.init_caches(B, P + G, device)
 
@@ -69,12 +73,16 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         for i in range(G):
-            lg = logits[..., :cfg.vocab_size]
+            lg = logits[:, -1:, ..., :cfg.vocab_size]   # (B, 1[, K], V)
             if args.temperature > 0:
-                probs = torch.softmax(lg[:, -1] / args.temperature, -1)
-                nxt = torch.multinomial(probs, 1, generator=data_gen)
+                probs = torch.softmax(lg / args.temperature, -1)
+                nxt = torch.multinomial(probs.reshape(-1, cfg.vocab_size), 1,
+                                        generator=data_gen
+                                        ).reshape(lg.shape[:-1])
             else:
-                nxt = lg[:, -1].argmax(-1, keepdim=True)
+                nxt = lg.argmax(-1)
+            if cfg.num_codebooks > 1:
+                nxt = nxt.movedim(-1, 1)                 # (B, K, 1)
             logits, caches = model.decode_step(params, caches, nxt, P + i)
         _sync(device)
         dt = time.perf_counter() - t0

@@ -1,6 +1,7 @@
-"""The default FedLite quantizer of the big archs and ``make_model`` (twin
-of the first part of ``repro/launch/specs.py``; its ShapeDtypeStruct
-specs belong to the dry run and are not ported yet)."""
+"""The default FedLite quantizer of the big archs and ``make_model`` for
+every family (twin of the first part of ``repro/launch/specs.py``; its
+ShapeDtypeStruct and mesh specs go with the mesh executor, ROADMAP
+A13)."""
 
 from __future__ import annotations
 

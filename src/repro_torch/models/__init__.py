@@ -1,1 +1,1 @@
-"""Model twins (the paper's FEMNIST CNN so far)."""
+"""Model twins: the paper's three models and the LM zoo's split decoder."""

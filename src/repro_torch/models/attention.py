@@ -8,7 +8,11 @@
     twin only from tests and benchmarks, the port puts it on the path.
   * ``row_block``: causal (optionally windowed) attention in query
     row-blocks, peak memory O(q_chunk · S_kv); training and batches that
-    carry their own positions take it.
+    carry their own positions take it. Under autograd each block is
+    rematerialized in the backward pass, as the reference's
+    ``jax.checkpoint``-ed block is, so the backward pass holds one block's
+    probabilities at a time. Training stays on this plain algorithm: the
+    flash kernel is forward-only, as its Pallas twin is.
   * ``local``: exact sliding-window attention for long sequences, blocks
     of the window attending to (previous ‖ own) key blocks.
   * ``decode``: one query token against a (possibly ring-buffered) cache.
@@ -32,6 +36,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
@@ -95,6 +100,14 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor):
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
+def _blockwise(block, *args):
+    """``block(*args)``, rematerialized in the backward pass under
+    autograd."""
+    if torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window: Optional[int]):
     """(Sq,) x (Skv,) -> (Sq, Skv) bool keep-mask: causal + sliding window."""
     m = qpos[:, None] >= kpos[None, :]
@@ -138,7 +151,8 @@ def row_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(keep, s, NEG_INF)
         return _gqa_out(torch.softmax(s, dim=-1), v)
 
-    out = torch.cat([block(qg[:, i:i + q_chunk], qpos[i:i + q_chunk])
+    out = torch.cat([_blockwise(block, qg[:, i:i + q_chunk],
+                                qpos[i:i + q_chunk])
                      for i in range(0, Sq, q_chunk)], dim=1)
     return out.reshape(B, Sq, H, hd)
 
@@ -173,12 +187,14 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   device=kpos.device), kpb[:-1]], dim=0)
     kpb2 = torch.cat([kprev, kpb], dim=1)  # (nb, 2W)
 
-    outs = []
-    for b in range(nb):
-        s = _gqa_scores(qg[:, b], k2[:, b], scale)
-        keep = _mask(qpb[b], kpb2[b], W)
+    def block(qb, kb_, vb_, qp, kp):
+        s = _gqa_scores(qb, kb_, scale)
+        keep = _mask(qp, kp, W)
         s = torch.where(keep, s, NEG_INF)
-        outs.append(_gqa_out(torch.softmax(s, dim=-1), v2[:, b]))
+        return _gqa_out(torch.softmax(s, dim=-1), vb_)
+
+    outs = [_blockwise(block, qg[:, b], k2[:, b], v2[:, b], qpb[b], kpb2[b])
+            for b in range(nb)]
     return torch.stack(outs, dim=1).reshape(B, S, H, hd)
 
 

@@ -1,28 +1,41 @@
-"""The split decoder LM, dense attention families (twin of
+"""The split decoder LM of every family (twin of
 ``repro/models/transformer.py``).
 
-A model is a repeated *period* of blocks (``cfg.layer_pattern``); dense
-archs have the period ("attn",). Weights of each position in the period are
+A model is a repeated *period* of blocks (``cfg.layer_pattern``): dense
+archs have the period ("attn",), jamba an 8-block mamba / attention
+interleave; MoE FFNs replace dense FFNs on the positions selected by
+(moe_period, moe_offset). Weights of each position in the period are
 stacked over periods (a leading axis of every leaf, the reference's layout)
-and the periods run in a Python loop where the reference scans.
+and the periods run in a Python loop where the reference scans. In
+training with ``cfg.remat`` each period is rematerialized in the backward
+pass (``torch.utils.checkpoint``), and within a period of several blocks
+each block again, so the backward pass holds one block's internals at a
+time; ``remat_policy="dots"`` saves the matmul outputs of the period.
 
 FedLite split: ``params = {"client": ..., "server": ...}``, nested dicts of
-tensors. The client owns the embedding and the first ``cfg.cut_periods``
-periods; the server owns the rest, the final norm and the LM head.
+tensors. The client owns the embedding (and the vision projector) and the
+first ``cfg.cut_periods`` periods; the server owns the rest, the final
+norm and the LM head.
 ``client_forward`` emits the cut-layer activation, which ``cut_activation``
 compresses per client -- each batch row (sequence) is one client, the
 leading client axis of ``core/compressors.py`` and ``core/quantizer.py``.
 
+Modalities: audio batches carry (B, K, S) token grids over K codebooks
+(summed embeddings, one head per codebook, (B, S, K, V) logits and
+(B, K, S) labels); vision batches carry precomputed patch embeddings
+(``vision_embeds``), projected and put ahead of the text, and their own
+M-RoPE positions (3, B, S).
+
+Training: ``loss`` is the full FedLite forward (client -> PQ with the
+corrected backward -> server -> cross-entropy plus the MoE balance loss);
+``chunked_ce`` takes the CE over chunks of 512 positions, each chunk's
+logits rematerialized in the backward pass.
+
 Serving: ``prefill`` runs the prompt (its attention through the flash
 kernel, see ``models/attention.py``), compresses the cut with the paper's
-PQ when ``quantize=True`` (the two PQ kernels on a card), fills the KV
-caches in place and returns the last token's logits; ``decode_step`` runs
-one token against the caches.
-
-Not ported yet, each raising ``NotImplementedError``: MoE and SSM blocks,
-multi-codebook (audio) and vision inputs (ROADMAP A15, the rest of the
-transformer stack), and the LM's training loss (``loss``, ``chunked_ce``,
-``_ce_sum``, ``token_ce``: ROADMAP A15, LM training).
+PQ when ``quantize=True`` (the two PQ kernels on a card), fills the KV and
+SSM caches in place and returns the last token's logits; ``decode_step``
+runs one token against the caches.
 """
 
 from __future__ import annotations
@@ -32,6 +45,9 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compressors import (CutCompressor, CutState,
@@ -43,6 +59,8 @@ from repro_torch.core.correction import quantize_with_correction_stats
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.core.split import dtype_bits
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        dense_init, mlp_init, norm_init)
 
@@ -72,8 +90,22 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A15)")
+# the matmuls whose outputs remat_policy="dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable: products without batch dimensions)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, *args, dots: bool = False):
+    """``fn(*args)`` rematerialized in the backward pass (all of it, or
+    all but the matmul outputs with ``dots``)."""
+    kw = {"context_fn": lambda: create_selective_checkpoint_contexts(
+        _save_dots)} if dots else {}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,17 +120,6 @@ class TransformerLM:
     uplink_compressor: Optional[CutCompressor] = None
     downlink_compressor: Optional[CutCompressor] = None
 
-    def __post_init__(self):
-        cfg = self.cfg
-        if cfg.num_experts:
-            _not_ported(f"{cfg.name}: MoE blocks")
-        if any(kind != "attn" for kind in cfg.layer_pattern):
-            _not_ported(f"{cfg.name}: SSM blocks")
-        if cfg.num_codebooks > 1:
-            _not_ported(f"{cfg.name}: multi-codebook inputs")
-        if cfg.vision_embed_dim:
-            _not_ported(f"{cfg.name}: vision inputs")
-
     # ------------------------------------------------------------------ init
     def init(self, generator: Optional[torch.Generator] = None,
              device="cuda") -> Params:
@@ -107,12 +128,21 @@ class TransformerLM:
         the ``meta`` device)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.param_dtype)
-        client: Params = {
-            "tok_embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
-                                    dtype, device=device),
-            "layers": self._init_stack(generator, cfg.cut_periods, dtype,
-                                       device),
-        }
+        K = cfg.num_codebooks
+
+        def per_codebook(init):
+            return torch.stack([init() for _ in range(K)]) if K > 1 \
+                else init()
+
+        client: Params = {"tok_embed": per_codebook(
+            lambda: embed_init(generator, cfg.padded_vocab, cfg.d_model,
+                               dtype, device=device))}
+        if cfg.vision_embed_dim:
+            client["vision_proj"] = dense_init(
+                generator, cfg.vision_embed_dim, cfg.d_model, dtype,
+                device=device)
+        client["layers"] = self._init_stack(generator, cfg.cut_periods,
+                                            dtype, device)
         server: Params = {
             "layers": self._init_stack(
                 generator, cfg.num_periods - cfg.cut_periods, dtype, device),
@@ -120,9 +150,9 @@ class TransformerLM:
                                     device=device),
         }
         if not cfg.tie_embeddings:
-            server["head"] = dense_init(generator, cfg.d_model,
-                                        cfg.padded_vocab, dtype,
-                                        device=device)
+            server["head"] = per_codebook(
+                lambda: dense_init(generator, cfg.d_model, cfg.padded_vocab,
+                                   dtype, device=device))
         return {"client": client, "server": server}
 
     def _init_stack(self, generator, n_periods: int, dtype,
@@ -135,10 +165,14 @@ class TransformerLM:
                 lp = {"ln1": norm_init(cfg.d_model, cfg.norm_type, dtype,
                                        device=device),
                       "ln2": norm_init(cfg.d_model, cfg.norm_type, dtype,
-                                       device=device),
-                      "mixer": attn_mod.attn_init(generator, cfg, dtype,
-                                                  device=device)}
-                if cfg.d_ff:
+                                       device=device)}
+                init = attn_mod.attn_init \
+                    if cfg.layer_pattern[pos] == "attn" else ssm_mod.ssm_init
+                lp["mixer"] = init(generator, cfg, dtype, device=device)
+                if self._pos_is_moe(pos):
+                    lp["ffn"] = moe_mod.moe_init(generator, cfg, dtype,
+                                                 device=device)
+                elif cfg.d_ff:
                     lp["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
                                          cfg.mlp_type, cfg.use_bias, dtype,
                                          device=device)
@@ -149,46 +183,113 @@ class TransformerLM:
             return {}
         return _stack([init_period() for _ in range(n_periods)])
 
+    def _pos_is_moe(self, pos: int) -> bool:
+        # position-static across periods: period % moe_period == 0 and the
+        # cut is a whole number of periods
+        return bool(self.cfg.num_experts) and \
+            (pos % self.cfg.moe_period == self.cfg.moe_offset)
+
     # ----------------------------------------------------------- embeddings
     def embed(self, client_params: Params, batch) -> torch.Tensor:
+        """Token embeddings (B, S, D) in the compute dtype: summed over the
+        codebooks of a (B, K, S) grid; a vision batch's projected patch
+        embeddings ahead of the text. The lookup is ``F.embedding``, whose
+        backward sums in a fixed order on the card."""
         cfg = self.cfg
-        x = client_params["tok_embed"][batch["tokens"]]
+        emb, tokens = client_params["tok_embed"], batch["tokens"]
+        if cfg.num_codebooks > 1:       # audio: (B, K, S) token grid
+            x = sum(F.embedding(tokens[:, k], emb[k])
+                    for k in range(cfg.num_codebooks))
+        else:
+            x = F.embedding(tokens, emb)
         if cfg.scale_embed:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        if cfg.vision_embed_dim and "vision_embeds" in batch:
+            vis = batch["vision_embeds"].to(x.dtype) \
+                @ client_params["vision_proj"]
+            x = torch.cat([vis, x], dim=1)
         return x.to(cfg.compute_dtype)
 
     # ------------------------------------------------------------- periods
+    def _training(self, mode: str) -> bool:
+        """Rematerialize in this pass: a training forward under autograd
+        with ``cfg.remat``."""
+        return mode == "train" and self.cfg.remat and torch.is_grad_enabled()
+
     def _apply_period(self, pp: Params, x, positions, mode, caches,
                       decode_pos):
+        """One period's blocks -> (x, aux). ``caches`` are written in
+        place."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # nested remat: with a period of several blocks (jamba's 8), one
+        # checkpoint for the whole period would hold every block's
+        # internals (SSD chunk stacks, MoE buffers) alive at once in the
+        # backward pass; a checkpoint per block holds one block's
+        inner = self._training(mode) and cfg.period > 1
+
+        def run(fn, *args):
+            return _remat(fn, *args) if inner else fn(*args)
+
         for pos in range(cfg.period):
             lp = pp[f"p{pos}"]
             cache = caches[f"p{pos}"] if caches is not None else None
-            h = apply_norm(lp["ln1"], x, cfg.norm_type, cfg.norm_eps)
-            y, _ = attn_mod.apply_attention(lp["mixer"], h, cfg, positions,
-                                            mode=mode, cache=cache,
-                                            decode_pos=decode_pos)
+            if cfg.layer_pattern[pos] == "attn":
+                def mixer_fn(lp_, x_):
+                    h = apply_norm(lp_["ln1"], x_, cfg.norm_type,
+                                   cfg.norm_eps)
+                    return attn_mod.apply_attention(
+                        lp_["mixer"], h, cfg, positions, mode=mode,
+                        cache=cache, decode_pos=decode_pos)[0]
+            else:
+                def mixer_fn(lp_, x_):
+                    h = apply_norm(lp_["ln1"], x_, cfg.norm_type,
+                                   cfg.norm_eps)
+                    return ssm_mod.apply_ssm(lp_["mixer"], h, cfg,
+                                             mode=mode, cache=cache)[0]
+            x = x + run(mixer_fn, lp, x)
+            if "ffn" not in lp:
+                continue
+            if self._pos_is_moe(pos):
+                def ffn_fn(lp_, x_):
+                    h = apply_norm(lp_["ln2"], x_, cfg.norm_type,
+                                   cfg.norm_eps)
+                    return moe_mod.apply_moe(lp_["ffn"], h, cfg)
+                y, a = run(ffn_fn, lp, x)
+                aux = aux + a
+            else:
+                def ffn_fn(lp_, x_):
+                    h = apply_norm(lp_["ln2"], x_, cfg.norm_type,
+                                   cfg.norm_eps)
+                    return apply_mlp(lp_["ffn"], h, cfg.mlp_type)
+                y = run(ffn_fn, lp, x)
             x = x + y
-            if "ffn" in lp:
-                h = apply_norm(lp["ln2"], x, cfg.norm_type, cfg.norm_eps)
-                x = x + apply_mlp(lp["ffn"], h, cfg.mlp_type)
-        return x
+        return x, aux
 
     def _run_stack(self, layers: Params, x, positions, mode, caches,
                    decode_pos):
         """Run the stacked periods in order; ``caches`` (stacked like the
         layers, or None) are written in place through per-period views.
-        Returns (x, caches, aux); aux, the MoE balance loss, is 0 here."""
+        Returns (x, caches, aux), aux the MoE balance loss summed over the
+        periods (f32)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if not layers:
             return x, caches, aux
+        remat = self._training(mode)
+        dots = self.cfg.remat_policy == "dots"
         n = next(tree_leaves(layers)).shape[0]
         for i in range(n):
             pslice = _tree_map(lambda t: t[i], layers)
             cslice = None if caches is None else \
                 _tree_map(lambda t: t[i], caches)
-            x = self._apply_period(pslice, x, positions, mode, cslice,
-                                   decode_pos)
+            if remat:
+                x, a = _remat(lambda pp, x_: self._apply_period(
+                    pp, x_, positions, mode, None, None), pslice, x,
+                    dots=dots)
+            else:
+                x, a = self._apply_period(pslice, x, positions, mode, cslice,
+                                          decode_pos)
+            aux = aux + a
         return x, caches, aux
 
     # ------------------------------------------------------- fedlite split
@@ -282,42 +383,106 @@ class TransformerLM:
         return x, new_caches, aux
 
     def head_matrix(self, params: Params) -> torch.Tensor:
-        """(D, Vp) LM head; the transposed embedding table when tied."""
+        """(D, Vp) LM head, (K, D, Vp) with K codebooks; the transposed
+        embedding table when tied."""
         if self.cfg.tie_embeddings:
-            return params["client"]["tok_embed"].T
+            return params["client"]["tok_embed"].transpose(-1, -2)
         return params["server"]["head"]
 
     def logits(self, params: Params, x: torch.Tensor,
                head: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """f32 logits (B, S, Vp), or (B, S, K, Vp) with K codebooks."""
         head = head if head is not None else self.head_matrix(params)
+        if self.cfg.num_codebooks > 1:
+            return torch.einsum("bsd,kdv->bskv", x, head.to(x.dtype)).float()
         return (x @ head.to(x.dtype)).float()
 
     # ------------------------------------------------------------- losses
-    def loss(self, params, batch, **kwargs):
-        _not_ported("the LM's training loss")
+    def loss(self, params: Params, batch, *, quantize: bool = True,
+             lam_override=None, key: Optional[torch.Generator] = None,
+             cut_state: Optional[CutState] = None):
+        """Full FedLite forward: client -> PQ (+ corrected backward) ->
+        server -> CE. Returns (ce + aux, metrics); the metrics are
+        detached (``cut_state`` passes through)."""
+        acts, _, aux_c = self.client_forward(params["client"], batch,
+                                             mode="train")
+        acts, pq_stats = self.cut_activation(acts, quantize=quantize,
+                                             lam_override=lam_override,
+                                             key=key, cut_state=cut_state)
+        x, _, aux_s = self.server_forward(params["server"], acts, batch,
+                                          mode="train")
+        ce = self.chunked_ce(params, x, batch["labels"])
+        aux = aux_c + aux_s
+        metrics = {"ce": ce, "aux": aux, **pq_stats}
+        metrics = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
+        return ce + aux, metrics
 
-    def chunked_ce(self, params, x, labels, chunk: int = 512):
-        _not_ported("the LM's training loss")
+    def chunked_ce(self, params: Params, x: torch.Tensor,
+                   labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+        """Mean CE over the valid labels without the full (B, S, V) logits:
+        a loop over sequence chunks, each chunk's logits rematerialized in
+        the backward pass. Full logits when ``chunk`` does not divide S or
+        S <= chunk."""
+        if self.cfg.num_codebooks > 1:
+            labels = labels.movedim(1, 2)                # (B, S, K)
+        count = (labels >= 0).sum().clamp_min(1)
+        S = x.shape[1]
+        if S % chunk != 0 or S <= chunk:
+            return self._ce_sum(self.logits(params, x), labels) / count
+        head = self.head_matrix(params)
+        remat = torch.is_grad_enabled()
 
-    def _ce_sum(self, logits, labels):
-        _not_ported("the LM's training loss")
+        def body(xb, lb):
+            return self._ce_sum(self.logits(params, xb, head=head), lb)
 
-    def token_ce(self, logits, labels):
-        _not_ported("the LM's training loss")
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, chunk):
+            xb, lb = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+            tot = tot + (_remat(body, xb, lb) if remat else body(xb, lb))
+        return tot / count
+
+    def _ce_sum(self, logits: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        """Sum of the masked token CE; labels already (B, S[, K]), −1
+        masked; the padded vocabulary's logits set to −1e30."""
+        vocab_ok = torch.arange(logits.shape[-1], device=logits.device) \
+            < self.cfg.vocab_size
+        logits = torch.where(vocab_ok, logits, -1e30)
+        mask = labels >= 0
+        safe = labels.clamp_min(0)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, safe[..., None])[..., 0]
+        return ((lse - picked) * mask).sum()
+
+    def token_ce(self, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+        """Mean CE of full logits: (B, S, V) against (B, S), or (B, S, K, V)
+        against (B, K, S)."""
+        if self.cfg.num_codebooks > 1:
+            labels = labels.movedim(1, 2)                # (B, S, K)
+        return self._ce_sum(logits, labels) / (labels >= 0).sum() \
+            .clamp_min(1)
 
     # --------------------------------------------------------- inference
     def init_caches(self, batch_size: int, max_len: int,
                     device="cuda") -> Params:
-        """Zeroed KV caches, stacked over periods like the layers."""
+        """Zeroed KV and SSM caches, stacked over periods like the
+        layers."""
         cfg = self.cfg
+
+        def cache(pos):
+            if cfg.layer_pattern[pos] == "attn":
+                return attn_mod.init_attn_cache(cfg, batch_size, max_len,
+                                                cfg.compute_dtype,
+                                                device=device)
+            return ssm_mod.init_ssm_cache(cfg, batch_size, cfg.compute_dtype,
+                                          device=device)
 
         def stack_caches(n_periods):
             if n_periods == 0:
                 return {}
-            per = {f"p{pos}": attn_mod.init_attn_cache(
-                       cfg, batch_size, max_len, cfg.compute_dtype,
-                       device=device)
-                   for pos in range(cfg.period)}
+            per = {f"p{pos}": cache(pos) for pos in range(cfg.period)}
             return _tree_map(
                 lambda t: t.expand(n_periods, *t.shape).clone(), per)
 
@@ -343,7 +508,8 @@ class TransformerLM:
 
     def decode_step(self, params: Params, caches, tokens: torch.Tensor,
                     decode_pos: int):
-        """One token (B, 1) at absolute position ``decode_pos``."""
+        """One token (B, 1), or (B, K, 1) with K codebooks, at absolute
+        position ``decode_pos``."""
         batch = {"tokens": tokens}
         acts, c_caches, _ = self.client_forward(
             params["client"], batch, mode="decode", caches=caches["client"],

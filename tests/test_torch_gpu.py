@@ -884,3 +884,112 @@ def test_snapshot_round_trip_on_card(tmp_path):
             assert torch.equal(again.opt_state[part][k],
                                state.opt_state[part][k])
     assert again.step == state.step and again.opt_state["step"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo's training on the card (MoE dispatch, the SSM scan, the train
+# step of every architecture with the kernels against the plain route)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_moe_dispatch_on_card():
+    """A dropping MoE layer (capacity factor 0.5) on the card and on the
+    CPU from the same f32 weights and input: the same gate indices and
+    kept pairs, the output and aux loss within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.models import moe
+
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(mixtral_8x22b.SMOKE_CONFIG, capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(4)
+    p = moe.moe_init(gen, cfg, torch.float32, device="cpu")
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    out = {}
+    for d in ("cpu", dev):
+        pd = {k: v.to(d) for k, v in p.items()}
+        xg = x.to(d).reshape(1, -1, cfg.d_model)
+        _, idx = moe.top_k(torch.softmax(xg @ pd["router"], -1),
+                           cfg.experts_per_token)
+        dest, keep = moe.dispatch_slots(idx, cfg.num_experts,
+                                        moe.capacity_of(cfg, 128))
+        y, aux = moe.apply_moe(pd, x.to(d), cfg)
+        out[str(d)] = [t.cpu() for t in (idx, dest, keep, y, aux)]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert not bool(cpu[2].all())
+    for a, b in zip(cpu[:3], card[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(cpu[3:], card[3:]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_on_card():
+    """ssd_scan on the card in f32 against the CPU (within 1e-4), with a
+    chunk that divides S and one that does not, and finite gradients
+    through the rematerialized chunks."""
+    from repro_torch.models import ssm
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(5)
+    B, S, H, P, N = 2, 96, 4, 16, 8
+    xh = torch.randn((B, S, H, P), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    A = -torch.exp(torch.randn(H, generator=gen))
+    Bm = torch.randn((B, S, N), generator=gen)
+    Cm = torch.randn((B, S, N), generator=gen)
+    for chunk in (32, 40):
+        y, h = ssm.ssd_scan(xh, dt, A, Bm, Cm, chunk)
+        ins = [t.to(dev).requires_grad_() for t in (xh, dt, A, Bm, Cm)]
+        yc, hc = ssm.ssd_scan(*ins, chunk)
+        torch.testing.assert_close(yc.detach().cpu(), y, rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(hc.detach().cpu(), h, rtol=1e-4,
+                                   atol=1e-4)
+        (yc.square().mean() + hc.square().mean()).backward()
+        assert all(bool(torch.isfinite(t.grad).all()) for t in ins)
+
+
+LM_ARCHS = ["starcoder2_3b", "mamba2_1p3b", "mixtral_8x22b",
+            "jamba_v0p1_52b", "gemma_7b", "llama4_maverick_400b",
+            "qwen2_vl_2b", "musicgen_large", "llama3_8b", "command_r_35b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_kernels_vs_plain_on_card(arch):
+    """Two make_train_step steps of the smoke config on the card (f32,
+    Adam, PQ at the cut), each from one state through lloyd_update and
+    pq_quantize (4 + 1 launches a step) and on the plain versions (PQ
+    backend "torch", no launch): the two losses within 1e-4 relative (a
+    PQ code may flip at a near-tie between the two Lloyd orders; the next
+    state is the kernels' step's, since Adam turns such a flip into an
+    lr-sized difference of the params)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.kernels import _build
+    from repro_torch.launch.specs import make_model
+    from repro_torch.launch.train import make_batch, step_rng
+    from repro_torch.optim import adam
+
+    dev = _cuda_or_skip()
+    cfg = get_arch(arch, smoke=True)
+    params = make_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+    kernel_step, plain_step = (
+        make_train_step(make_model(dataclasses.replace(cfg, pq_backend=b)),
+                        adam(1e-3)) for b in ("auto", "torch"))
+    state = TrainState.create(params, adam(1e-3))
+    for s in range(2):
+        batch = make_batch(cfg, step_rng(0, s), 2, 64, dev)
+        _build.reset_launch_counts()
+        _, m_p = plain_step(state, batch)
+        torch.cuda.synchronize()
+        assert _build.launch_counts() == {}
+        state, m_k = kernel_step(state, batch)
+        torch.cuda.synchronize()
+        assert _build.launch_counts() == {"lloyd_update": 4,
+                                          "pq_quantize": 1}
+        assert np.isfinite(float(m_k["loss"]))
+        np.testing.assert_allclose(float(m_k["loss"]), float(m_p["loss"]),
+                                   rtol=1e-4)
