@@ -29,6 +29,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                 mask, near-ties, exact cover and empty clusters; and all
                 three on their generic routes at the SO runs' five other
                 shapes and at L = threshold, D = 64;
+  3b. anyd   -- the three clustering kernels above one chunk of 64 dims,
+                where they refused D before: the FEMNIST example's --q 96
+                cut (D = 96), D = 96 at L = threshold + 1 (tiled), D = 65,
+                D = 128 and D = 9216, in f32 and bf16, held as the parity
+                phase holds them; then kmeans() as Fig. 3's vanilla k-means
+                runs it (20 rows of the 9216-wide cut, L = 2 to 64)
+                through the kernels and the plain versions, with exact
+                launch counts;
   4. slice   -- the FEMNIST FedLite train step at full width (d = 9216,
                 q = 1152, L = 2, R = 1, 5 Lloyd iterations, 10 clients of
                 20 examples, λ = 1e-4, sgd(10**-1.5)) for --steps steps,
@@ -105,6 +113,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                 downlink to scalarq(bits=8) (scalar_quantize's launches
                 counted exactly); each segment's trace recommends its
                 recorded plan again;
+  7h. examples -- the four examples' twins (repro_torch.examples) through
+                their main on the card, each run's launch counts read
+                around it: quickstart; the FEMNIST example's ideal loop
+                (10 rounds at full width, d8 routes), at --q 96 (the
+                lifted generic routes, its round 1 first held against CPU
+                copies) and with --fleet mobile --policy deadline; the
+                LLM fine-tune (200 steps) and split serving (flash
+                attention in prefill) at their reduced defaults;
+  7i. adafactor -- a FEMNIST step under Adafactor (the conv weights
+                factored over I and O, as the reference) against the CPU's;
   8. serve   -- split serving of Llama-3 8B at full width (32 layers,
                 d = 4096, 32/8 heads, vocab 128256, bf16, random weights
                 from --seed): the prefill of 4 prompts of 2048 tokens with
@@ -144,7 +162,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 tiled and pq_quantize's and kmeans_assign's generic route
                 at the SO runs' tiled shapes, lloyd_update's generic route
                 at the largest of its SO shapes; lloyd_update and
-                pq_quantize at the three LM runs' cuts.
+                pq_quantize at the three LM runs' cuts; the three
+                clustering kernels above 64 dims (--q 96, D = 128 and Fig.
+                3's (20, 9216) at L = 64).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -155,9 +175,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -192,6 +214,14 @@ DL_TOTAL = CLIENT_BATCH * CUT_D        # one client's cotangent: 184320
 DL_KEPT = round(0.1 * DL_TOTAL)        # the chain's carrier: 18432
 WARM_ITERS = ITERS // 2                # Lloyd iterations of a warm step
 PACK_BITS = (1, 2, 4, 8, 16)
+# the examples phase: quickstart's PQConfig(1152, 2) at its default 8 Lloyd
+# iterations (3 quantize calls), split_llm_finetune's default --steps. The
+# clustering kernels above 64 dims: the FEMNIST example at --q 96, and
+# Fig. 3's vanilla k-means (benchmarks/bench_quantizer_tradeoff.py:66) on
+# 20 rows of the cut at L in {2, 8, 32, 64}, 6 iterations (its fast run's)
+QS_ITERS, LLM_STEPS = 8, 200
+ANYD_Q = 96
+FIG3_ROWS, FIG3_L, FIG3_ITERS = 20, (2, 8, 32, 64), 6
 
 # split serving of Llama-3 8B (src/repro_torch/configs/llama3_8b.py): 4
 # prompts of 2048 tokens, one client each, then 32 greedy decode steps
@@ -559,12 +589,14 @@ def misaligned(x):
     return view
 
 
-def check_kmeans_assign(tag, x, c, lmask=None):
+def check_kmeans_assign(tag, x, c, lmask=None, by_depth=False):
     """kmeans_assign vs its plain version (codes equal but for near-ties,
-    distances within SQDIST_RTOL·(1 + ‖x‖²)); on d8 also bitwise the
-    generic route (through an all-valid mask and through a misaligned
-    copy); a bf16 x bitwise its f32 upcast. Returns max |sqdist err| where
-    the codes agree."""
+    distances within SQDIST_RTOL·(1 + ‖x‖²), or with ``by_depth`` within
+    2·γ_D·Σ(|x_k| + |c_k|)², the f32 bound of two orders of chains of D
+    terms, which a large D needs); on d8 also bitwise the generic route
+    (through an all-valid mask and through a misaligned copy); a bf16 x
+    bitwise its f32 upcast. Returns max |sqdist err| where the codes
+    agree."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.kmeans_assign import (assign_route,
                                                    kmeans_assign_kernel)
@@ -582,7 +614,16 @@ def check_kmeans_assign(tag, x, c, lmask=None):
     scale = 1 + x.float().square().sum(-1)
     err = (sq - sq_r).abs()
     rel = float((err / scale)[agree].max())
-    if not rel <= SQDIST_RTOL:
+    if by_depth:
+        d = x.shape[-1]
+        gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+        mag = (x.float().abs() + ref._gather_rows(c, codes.long()).abs()) \
+            .square().sum(-1)
+        over = float((err - 2 * gamma * mag)[agree].max())
+        if over > 0:
+            fail(f"kmeans_assign {tag}: sqdist off by more than "
+                 f"2·γ_D·Σ(|x| + |c|)² (by {over})")
+    elif not rel <= SQDIST_RTOL:
         fail(f"kmeans_assign {tag}: sqdist off by {rel} of (1 + ‖x‖²)")
     extra = ""
     if route == "d8":
@@ -3792,6 +3833,317 @@ def time_large_l(gen, counts, errs):
     return list(entries.values())
 
 
+# ---------------------------------------------------------------------------
+# the clustering kernels at any D, the examples' twins, Adafactor
+# ---------------------------------------------------------------------------
+
+def anyd_shapes():
+    """(tag, (P, N, D, L)) of the clustering kernels above one chunk of dims
+    (``kernels.lloyd_update.D_TILE`` = 64), where they refused D before:
+    the FEMNIST example at --q 96 (a problem per client of 20 x 96 rows of
+    96), lloyd_update's tiled route at D = 96, D = 65 and 128 with small L,
+    and one codebook over 20 rows of the whole FEMNIST cut."""
+    return {f"D=96 (--q {ANYD_Q})": (CLIENTS, CLIENT_BATCH * ANYD_Q,
+                                     CUT_D // ANYD_Q, 2),
+            f"D=96 L={gmax() + 1}": (2, 1500, 96, gmax() + 1),
+            "D=65": (2, 3001, 65, 3),
+            "D=128": (3, 1001, 128, 20),
+            f"D={CUT_D}": (1, FIG3_ROWS, CUT_D, 2)}
+
+
+def phase_anyd(gen):
+    """The three clustering kernels at ``anyd_shapes``, f32 and bf16, held
+    as phase_tiled_parity holds them (lloyd_update bitwise the plain
+    version in its route's order and within γ·Σ|terms| of f64, a bf16 x
+    bitwise its f32 upcast; codes equal but for near-ties, z̃ and the
+    residual bitwise where they agree); then kmeans() as Fig. 3's vanilla
+    k-means runs it (benchmarks/bench_quantizer_tradeoff.py:66): 20 rows
+    of the 9216-wide cut at each L of its grid, through the kernels and
+    through the plain versions on the card. Returns (max errors under
+    "<kernel>/anyd", kmeans_assign's launches in those kmeans() runs)."""
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kmeans_assign import assign_route
+    from repro_torch.kernels.lloyd_update import row_route
+    from repro_torch.kernels.pq_quantize import pq_route
+
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(("lloyd_update/anyd", "pq_quantize/anyd",
+                          "kmeans_assign/anyd"), 0.0)
+    for tag, (p, n, d, l) in anyd_shapes().items():
+        x = torch.randn((p, n, d), generator=gen).to(dev)
+        c = torch.randn((p, l, d), generator=gen).to(dev)
+        want = ("tiled" if l > gmax() else "generic", "generic", "generic")
+        routes = (row_route(x, l), pq_route(x, l), assign_route(x, l, None))
+        if routes != want:
+            fail(f"any-D parity {tag}: routes {routes}, want {want}")
+        ones = torch.ones((p, n), device=dev)
+        for xt in (x, x.to(torch.bfloat16)):
+            dt = str(xt.dtype)[6:]
+            for name, e in (
+                    ("lloyd_update/anyd", check_lloyd(
+                        f"{tag} {dt}", xt, c, None, ones, None)[0]),
+                    ("pq_quantize/anyd", check_pq(f"{tag} {dt}", xt, c)[0]),
+                    ("kmeans_assign/anyd",
+                     check_kmeans_assign(f"{tag} {dt}", xt, c,
+                                         by_depth=True))):
+                errs[name] = max(errs[name], e)
+    x = torch.randn((FIG3_ROWS, CUT_D), generator=gen).to(dev)
+    launches = 0
+    for l in FIG3_L:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = kmeans(x, l, FIG3_ITERS, backend="auto")
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        plain = kmeans(x, l, FIG3_ITERS, backend="torch")
+        torch.cuda.synchronize()
+        want = {"lloyd_update": FIG3_ITERS, "kmeans_assign": 1}
+        if counts != want:
+            fail(f"Fig. 3 kmeans L={l}: launches {counts} != {want}")
+        gap = float((got.centroids - plain.centroids).abs().max())
+        if not (torch.equal(got.codes, plain.codes)
+                and gap <= 1e-4 * (1 + float(plain.centroids.abs().max()))):
+            fail(f"Fig. 3 kmeans L={l}: codes equal "
+                 f"{torch.equal(got.codes, plain.codes)}, centroids off by "
+                 f"{gap}")
+        launches += counts["kmeans_assign"]
+        say("parity", f"Fig. 3 vanilla k-means ({FIG3_ROWS}, {CUT_D}) L={l} "
+            f"{FIG3_ITERS} iterations: launches {counts}; codes equal to "
+            f"the plain versions', centroids within {gap:.3e}, distortion "
+            f"{float(got.distortion):.4f} vs {float(plain.distortion):.4f}")
+    return errs, launches
+
+
+def time_anyd(gen, counts, errs):
+    """The lifted routes L2-warm, each beside its plain version and its
+    bound: the three kernels at the FEMNIST example's --q 96 shape, at
+    D = 128 and at Fig. 3's (20, 9216), L = 64. Returns the kernels line's
+    "<kernel>/anyd" entries: lloyd_update and pq_quantize at --q 96 with
+    their launches in the example's --q 96 run, kmeans_assign at Fig. 3's
+    shape with its launches in the kmeans() runs (``counts``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
+    from repro_torch.kernels.lloyd_update import (lloyd_update_kernel,
+                                                  row_route)
+    from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+
+    dev = torch.device("cuda")
+    q96 = anyd_shapes()[f"D=96 (--q {ANYD_Q})"]
+    entries = {}
+    for tag, (p, n, d, l), entry in (
+            (f"--q {ANYD_Q}", q96, ("lloyd_update", "pq_quantize")),
+            ("D=128", anyd_shapes()["D=128"], ()),
+            (f"Fig. 3 D={CUT_D}", (1, FIG3_ROWS, CUT_D, FIG3_L[-1]),
+             ("kmeans_assign",))):
+        x = torch.randn((p, n, d), generator=gen).to(dev)
+        c = torch.randn((p, l, d), generator=gen).to(dev)
+        for name, src, replaces, kern, plain, work in (
+                ("lloyd_update", "lloyd_update.cu",
+                 "src/repro/kernels/lloyd_update.py:87",
+                 lambda: lloyd_update_kernel(x, None, c),
+                 lambda: ref.lloyd_update_ref(x, None, c),
+                 lloyd_work(x, l)),
+                ("pq_quantize", "pq_quantize.cu",
+                 "src/repro/kernels/pq_quantize.py:55",
+                 lambda: pq_quantize_kernel(x, c),
+                 lambda: ref.pq_quantize_ref(x, c), pq_work(x, l)),
+                ("kmeans_assign", "kmeans_assign.cu",
+                 "src/repro/kernels/kmeans_assign.py:58",
+                 lambda: kmeans_assign_kernel(x, c),
+                 lambda: ref.kmeans_assign_ref(x, c), assign_work(x, l))):
+            key = f"{name}/anyd"
+            k_ms = device_ms(kern, calls=20, reps=10)
+            p_ms = device_ms(plain, calls=5, reps=4)
+            b_ms, b_by = bound(*work)
+            say("times", f"{name} at any D, {tag}: x {tuple(x.shape)} L={l} "
+                f"(lloyd_update route {row_route(x, l)}): kernel "
+                f"{k_ms * 1e3:.2f} us (device, CUDA graph, L2-warm); plain "
+                f"{p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {b_by} "
+                f"({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} MOP), "
+                f"{b_ms / k_ms:.1%} of it reached")
+            if name in entry:
+                entries[key] = {"name": key, "route": "cuda",
+                                "source": f"src/repro_torch/csrc/{src}",
+                                "replaces": replaces,
+                                "launches": counts.get(key, 0),
+                                "max_abs_err": errs[key], "ms": k_ms,
+                                "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "library_ms": None}
+        del x, c
+    return [entries[f"{k}/anyd"] for k in ("lloyd_update", "pq_quantize",
+                                            "kmeans_assign")]
+
+
+def run_example(module, argv):
+    """``module.main(argv)`` on the card: its lines printed under
+    [examples] and returned, with the launch counts read around it."""
+    from repro_torch.kernels import _build
+
+    name = module.__name__.rsplit(".", 1)[-1]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say("examples", f"  {line}")
+    say("examples", f"{name} {' '.join(argv)}: exit {rc} in {seconds:.1f} s; "
+        f"launches {counts}")
+    if rc != 0:
+        fail(f"{name} {argv}: exit {rc}")
+    return lines, counts
+
+
+@contextlib.contextmanager
+def trainers_built(module):
+    """The FederatedTrainers ``module`` builds while open, in order."""
+    built, orig = [], module.FederatedTrainer
+
+    def build(*args, **kw):
+        built.append(orig(*args, **kw))
+        return built[-1]
+    module.FederatedTrainer = build
+    try:
+        yield built
+    finally:
+        module.FederatedTrainer = orig
+
+
+def want_counts(tag, counts, want):
+    if counts != want:
+        fail(f"{tag}: launches {counts} != {want}")
+
+
+def phase_examples(seed, dev="cuda"):
+    """The four examples' twins (``repro_torch.examples``) through their
+    ``main`` on the card, each run's launch counts read around it:
+    quickstart in full; the FEMNIST example's ideal loop, 10 rounds at full
+    width (d8 routes); at --q 96 (D = 96: lloyd_update's and pq_quantize's
+    lifted generic routes), its round 1 first held to the same round on
+    CPU copies; with the mobile fleet and the 6 s deadline; the LLM twins
+    at their reduced defaults (serve: flash attention in prefill). Returns
+    the --q 96 run's launches under "<kernel>/anyd"."""
+    from repro_torch.examples import (femnist_federated_training, quickstart,
+                                      serve_split, split_llm_finetune)
+    from repro_torch.federated import FullSync
+    from repro_torch.launch.specs import default_pq
+    from repro_torch.configs.base import get_arch
+
+    on = ["--device", dev]
+    lines, counts = run_example(quickstart, on)
+    want_counts("quickstart", counts, {"lloyd_update": 3 * QS_ITERS,
+                                       "pq_quantize": 3})
+    if not any(line.endswith("True") for line in lines):
+        fail("quickstart: the eq.-5 cotangent check failed")
+
+    fx = femnist_federated_training
+    with route_spy() as seen:
+        lines, counts = run_example(fx, ["--rounds", "10", *on])
+    want_counts("femnist ideal", counts, {"lloyd_update": 10 * ITERS,
+                                          "pq_quantize": 10})
+    if set(r for _, r in seen) != {"d8"}:
+        fail(f"femnist ideal: routes {set(seen)}")
+    losses = [float(v) for v in re.findall(r"loss=(\S+)", "\n".join(lines))]
+    if len(losses) != 2 or not all(np.isfinite(losses)):
+        fail(f"femnist ideal: losses {losses}")
+
+    argv = ["--q", str(ANYD_Q), "--clusters", "2", "--rounds", "3"]
+    card = fx.build(fx.parse_args([*argv, *on]))
+    cpu = fx.build(fx.parse_args([*argv, "--device", "cpu"]))
+    # the CPU copy on the plain versions, as "auto" resolves there
+    cpu[0].pq = dataclasses.replace(cpu[0].pq, backend="torch")
+    weights = {k: v.detach().cpu().clone()
+               for k, v in cpu[0].state_dict().items()}
+    hold_to_cpu(f"femnist --q {ANYD_Q} round 1", weights,
+                card[3](CLIENTS, FullSync(), None),
+                cpu[3](CLIENTS, FullSync(), None), seed)
+    with route_spy() as seen:
+        _, counts = run_example(fx, [*argv, *on])
+    want_counts(f"femnist --q {ANYD_Q}", counts,
+                {"lloyd_update": 3 * ITERS, "pq_quantize": 3})
+    if set(r for _, r in seen) != {"generic"}:
+        fail(f"femnist --q {ANYD_Q}: routes {set(seen)}")
+    anyd = {f"{k}/anyd": v for k, v in counts.items()}
+
+    with trainers_built(fx) as built:
+        _, counts = run_example(fx, ["--fleet", "mobile", "--policy",
+                                     "deadline", "--rounds", "5", *on])
+    trace = built[0].last_trace
+    want_counts("femnist mobile deadline", counts,
+                counts_want(trace, 1, ITERS, WARM_ITERS, False))
+
+    cfg = get_arch("llama3_8b", smoke=True)
+    lines, counts = run_example(split_llm_finetune,
+                                ["--steps", str(LLM_STEPS), *on])
+    it = default_pq(cfg).kmeans_iters
+    want_counts("split_llm_finetune", counts,
+                {"lloyd_update": LLM_STEPS * it, "pq_quantize": LLM_STEPS})
+    lines, counts = run_example(serve_split, on)
+    it = default_pq(get_arch("starcoder2_3b", smoke=True)).kmeans_iters
+    if counts.get("flash_attention", 0) < 1 or \
+            (counts.get("lloyd_update"), counts.get("pq_quantize")) \
+            != (it, 1):
+        fail(f"serve_split: launches {counts}")
+    if not any(torch.cuda.get_device_name(0) in line for line in lines):
+        fail("serve_split: the decode line names no device")
+    return anyd
+
+
+def phase_adafactor(seed, dev="cuda"):
+    """One FEMNIST FedLite step (q = 1152, L = 2, 10 clients of 20) under
+    Adafactor on the card, against the same step on the CPU (the plain
+    versions) from the same weights and batch: the update within
+    UPDATE_RTOL (relative L2) on the client's and the server's params (the
+    conv weights' factors over I and O, as the reference's)."""
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.kernels import _build
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import adafactor
+
+    out = {}
+    for where in (dev, "cpu"):
+        model = FemnistCNN(pq=PQConfig(Q, L, kmeans_iters=ITERS), lam=LAM,
+                           client_batch=CLIENT_BATCH, device=where,
+                           generator=torch.Generator().manual_seed(seed))
+        data = make_federated_image_data(num_clients=64, seed=0,
+                                         device=where)
+        parts = [data.sample_batch(c, np.random.default_rng([seed, c]),
+                                   CLIENT_BATCH) for c in range(CLIENTS)]
+        batch = {k: torch.cat([b[k] for b in parts]) for k in parts[0]}
+        opt = adafactor(1e-2)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        if where == dev:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        new, met = make_train_step(model, opt)(state, batch)
+        if where == dev:
+            torch.cuda.synchronize()
+            want_counts("adafactor step", _build.launch_counts(),
+                        {"lloyd_update": ITERS, "pq_quantize": 1})
+        out[where] = (state, new, float(met["loss"]))
+    before = {k: v.detach().float() for k, v in out["cpu"][0].params.items()}
+    gaps, worst = update_gaps(before, out[dev][1].params, out["cpu"][1].params)
+    row = out[dev][1].opt_state["v"]["client.conv2_w"]["row"]
+    say("adafactor", f"FEMNIST step under Adafactor: loss {out[dev][2]:.6f} "
+        f"vs the CPU's {out['cpu'][2]:.6f}; update gap in L2: client "
+        f"{gaps['client']:.3e}, server {gaps['server']:.3e}; max |Δparam| "
+        f"{worst:.3e}; conv2's row factor {tuple(row.shape)} (kH, kW, I)")
+    if not max(gaps.values()) <= UPDATE_RTOL \
+            or abs(out[dev][2] - out["cpu"][2]) > LOSS_ATOL:
+        fail(f"adafactor step: update gaps {gaps}, losses "
+             f"{out[dev][2]} / {out['cpu'][2]}")
+    if tuple(row.shape) != (3, 3, 32):
+        fail(f"adafactor: conv2's row factor {tuple(row.shape)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3812,6 +4164,8 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
     errs = phase_parity(gen)
+    anyd_errs, fig3_launches = phase_anyd(gen)
+    errs.update(anyd_errs)
     _, run3 = phase_slice(args.seed, args.steps)
     phase_profile("slice", run3)
     counts, assign_counts, assign_err = phase_kmeans(gen)
@@ -3845,6 +4199,11 @@ def main(argv=None) -> int:
     phase_health(args.seed)
     phase_autoscale(args.seed)
     torch.cuda.empty_cache()
+    # the four examples' twins as their users run them, and Adafactor
+    anyd_counts = phase_examples(args.seed)
+    anyd_counts["kmeans_assign/anyd"] = fig3_launches
+    phase_adafactor(args.seed)
+    torch.cuda.empty_cache()
     # the serve prefill: flash_attention's launches, and the PQ kernels at
     # their largest shape (4 problems of 1048576 x 8, L = 16), held on the
     # serve cut
@@ -3862,6 +4221,7 @@ def main(argv=None) -> int:
                           assign_counts)
     kernels += time_large_l(gen, so_counts, errs)
     kernels += time_lm_pq(gen, lm_counts, lm_errs)
+    kernels += time_anyd(gen, anyd_counts, errs)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

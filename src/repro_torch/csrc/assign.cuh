@@ -6,21 +6,24 @@
 // which is the argmin of ‖x − c_l‖² (‖x‖² does not depend on l). Masked
 // centroids score kNeg and never win; ties go to the first index, as
 // jnp.argmax and torch.argmax do. A null lmask means every centroid is
-// valid. D is small (D <= 64; D = 8 and L <= 16 on the FEMNIST and serve
-// paths, D <= 32 and L <= 960 on the text tasks), below any tensor-core
-// tile, so the dot products are plain FMAs over a row and a codebook that
-// sits in shared memory, whole or a tile at a time.
+// valid. D is small on the FEMNIST and serve paths (D = 8, L <= 16) and
+// the text tasks' (D <= 32, L <= 960), and may be anything up to a whole
+// cut (D = 9216 for vanilla k-means on the FEMNIST cut); every form keeps
+// below tensor-core tiles, so the dot products are plain FMAs over a row
+// and a codebook that sit in shared memory, whole or a tile at a time.
 //
-// Three forms of the same arithmetic: assign_row_best reads the row from
-// shared memory at run-time D and L (lloyd_update's generic route),
-// assign_row_reg reads it from registers at compile-time D and L (the d8
-// routes), and assign_row_streamed streams a codebook of any L through
-// shared memory in tiles of kLTile centroids (the generic routes of
-// kmeans_assign and pq_quantize, lloyd_update's tiled route). All run k
-// ascending in one fmaf chain per centroid, then 2·dot − ‖c‖² as one fmaf
-// (2·dot is exact, so this is the rounding of the subtraction alone), then
-// a strict > over l ascending, so they give the same code and best score
-// bit for bit.
+// Three forms of the same arithmetic: assign_row reads the row from
+// shared memory at run-time D and L (lloyd_update's generic route at
+// D <= kDTile), assign_row_reg reads it from registers at compile-time D
+// and L (the d8 routes), and assign_tile streams a codebook of any L
+// through shared memory in tiles of kLTile centroids, and rows of any D in
+// chunks of kDTile dims, holding each row's dot products with a tile's
+// centroids in registers across the chunks (the generic routes of
+// kmeans_assign and pq_quantize, lloyd_update's tiled route, and its
+// generic route above kDTile). All run k ascending in one fmaf chain per
+// centroid, then 2·dot − ‖c‖² as one fmaf (2·dot is exact, so this is the
+// rounding of the subtraction alone), then a strict > over l ascending, so
+// they give the same code and best score bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,88 +63,130 @@ __device__ __forceinline__ void load_codebook(const float* __restrict__ c,
   __syncthreads();
 }
 
-// Copies rows [0, rows) of a contiguous (rows, d) tile into shared memory
-// as f32 with row stride row_stride(d); consecutive threads read consecutive
-// elements.
+// Copies columns [0, kc) of rows [0, rows) of a (rows, ld) tile into shared
+// memory as f32 at row stride `stride`; consecutive threads read
+// consecutive elements of a row.
 template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          float* xs, int rows, int d) {
-  const int stride = row_stride(d);
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x)
-    xs[(e / d) * stride + e % d] = to_f32(src[e]);
+__device__ __forceinline__ void load_cols(const T* __restrict__ src, int ld,
+                                          float* xs, int rows, int kc,
+                                          int stride) {
+  for (int e = threadIdx.x; e < rows * kc; e += blockDim.x) {
+    const int r = e / kc, k = e % kc;
+    xs[r * stride + k] = to_f32(src[(size_t)r * ld + k]);
+  }
 }
 
-// Folds centroids l0 .. l0 + lt − 1, held in shared memory as cs [lt][d],
-// cn and ms [lt], into a row's running (best, code), l ascending, by a
-// strict >: the first index of the maximum wins, and a NaN score never
-// does.
-__device__ __forceinline__ void assign_row_fold(const float* xr,
-                                                const float* cs,
-                                                const float* cn,
-                                                const float* ms, int l0,
-                                                int lt, int d, float* best,
-                                                int* code) {
-  for (int li = 0; li < lt; ++li) {
+// The row's code against the (l, d) codebook held whole in shared memory
+// as cs [l][d], with its norms cn and mask ms [l]: the scores fold l
+// ascending by a strict >, so the first index of the maximum wins and a
+// NaN score never does.
+__device__ __forceinline__ int assign_row(const float* xr, const float* cs,
+                                          const float* cn, const float* ms,
+                                          int l, int d) {
+  float best = -INFINITY;
+  int code = 0;
+  for (int li = 0; li < l; ++li) {
     float dot = 0.f;
     for (int k = 0; k < d; ++k) dot = fmaf(xr[k], cs[li * d + k], dot);
     float s = fmaf(2.f, dot, -cn[li]);  // 2·dot is exact: one rounding
     if (!(ms[li] > 0.f)) s = kNeg;
-    if (s > *best) {
-      *best = s;
-      *code = l0 + li;
+    if (s > best) {
+      best = s;
+      code = li;
     }
   }
-}
-
-// The row's code, and its best score in *best_score (kmeans_assign.cu turns
-// it into the squared distance ‖x‖² − best).
-__device__ __forceinline__ int assign_row_best(const float* xr,
-                                               const float* cs,
-                                               const float* cn,
-                                               const float* ms, int l, int d,
-                                               float* best_score) {
-  float best = -INFINITY;
-  int code = 0;
-  assign_row_fold(xr, cs, cn, ms, 0, l, d, &best, &code);
-  *best_score = best;
   return code;
 }
 
-__device__ __forceinline__ int assign_row(const float* xr, const float* cs,
-                                          const float* cn, const float* ms,
-                                          int l, int d) {
-  float best;
-  return assign_row_best(xr, cs, cn, ms, l, d, &best);
-}
-
 // ---------------------------------------------------------------------------
-// Any L: the codebook streams through shared memory.
+// Any L and any D: the codebook and the rows stream through shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int kLTile = 64;  // centroids a tile
+constexpr int kDTile = 64;  // dims a chunk
 
-// A block's rows against a codebook of any L: the (l, d) codebook c and
-// the (l,) lmask (null: every centroid valid) pass through cs [kLTile][d],
-// cn and ms [kLTile] in tiles of kLTile centroids, each with its norms
-// from load_codebook, and every thread with a row (xr not null) folds each
-// tile into its running best and code. Over the tiles this is
-// assign_row_best's scan, so the code and best score are bit for bit
-// those of a codebook held whole. Call with the whole block; it ends with a barrier,
-// after which cs may be reused.
-__device__ __forceinline__ int assign_row_streamed(
-    const float* xr, const float* __restrict__ c,
-    const float* __restrict__ lmask, float* cs, float* cn, float* ms, int l,
-    int d, float* best_score) {
-  float best = -INFINITY;
+// Dims of a row that a chunk in shared memory holds: the whole row up to
+// kDTile, else kDTile.
+__host__ __device__ __forceinline__ int chunk_dims(int d) {
+  return d < kDTile ? d : kDTile;
+}
+
+// The code of each of a block's `rows` rows (row r at x + r·d) against the
+// (l, d) codebook c and the (l,) lmask (null: every centroid valid); thread
+// t takes row t (t < rows, null rows past it). The codebook passes through
+// cs [kLTile][dc], cn and ms [kLTile] in tiles of kLTile centroids and the
+// rows through xs [blockDim][row_stride(dc)] in chunks of dc =
+// chunk_dims(d) dims; each thread keeps its row's dot products with the
+// tile's centroids in registers across the chunks, k ascending, so each is
+// the one fmaf chain assign_row runs over a whole row, and so is each
+// norm. The scores then fold l ascending by assign_row's strict >:
+// the code and best score are bit for bit those of a row and codebook held
+// whole. Where xnorm is given it receives ‖x‖², one fmaf chain over k
+// ascending. With one chunk (d <= kDTile) each row is read once and stays
+// in xs on return; with more, xs holds the last chunk. Call with the whole
+// block; it ends with a barrier, after which cs, cn and ms may be reused.
+template <typename T>
+__device__ int assign_tile(const T* __restrict__ x, int rows,
+                           const float* __restrict__ c,
+                           const float* __restrict__ lmask, int l, int d,
+                           float* xs, float* cs, float* cn, float* ms,
+                           float* best_score, float* xnorm = nullptr) {
+  const int tid = threadIdx.x;
+  const int stride = row_stride(chunk_dims(d));
+  const bool whole = d <= kDTile, mine = tid < rows;
+  const float* xr = xs + tid * stride;
+  // the first chunk's barrier orders this load
+  if (whole) load_cols(x, d, xs, rows, d, stride);
+  float best = -INFINITY, xn = 0.f;
   int code = 0;
   for (int l0 = 0; l0 < l; l0 += kLTile) {
     const int lt = min(kLTile, l - l0);
-    load_codebook(c + (size_t)l0 * d, lmask ? lmask + l0 : nullptr, cs, cn,
-                  ms, lt, d);  // ends with a barrier
-    if (xr) assign_row_fold(xr, cs, cn, ms, l0, lt, d, &best, &code);
-    __syncthreads();  // the next tile overwrites cs, cn and ms
+    float dot[kLTile];
+#pragma unroll
+    for (int j = 0; j < kLTile; ++j) dot[j] = 0.f;
+    for (int j = tid; j < lt; j += blockDim.x) {
+      cn[j] = 0.f;
+      ms[j] = lmask ? lmask[l0 + j] : 1.f;
+    }
+    for (int k0 = 0; k0 < d; k0 += kDTile) {
+      const int kc = min(kDTile, d - k0);
+      if (!whole) load_cols(x + k0, d, xs, rows, kc, stride);
+      for (int e = tid; e < lt * kc; e += blockDim.x)
+        cs[e] = c[(size_t)(l0 + e / kc) * d + k0 + e % kc];
+      __syncthreads();
+      for (int j = tid; j < lt; j += blockDim.x) {
+        float s = cn[j];
+        for (int k = 0; k < kc; ++k)
+          s = fmaf(cs[j * kc + k], cs[j * kc + k], s);
+        cn[j] = s;
+      }
+      if (mine) {
+        for (int k = 0; k < kc; ++k) {
+          const float xk = xr[k];
+          if (l0 == 0) xn = fmaf(xk, xk, xn);
+#pragma unroll
+          for (int j = 0; j < kLTile; ++j)
+            if (j < lt) dot[j] = fmaf(xk, cs[j * kc + k], dot[j]);
+        }
+      }
+      __syncthreads();  // the next chunk overwrites xs and cs
+    }
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < kLTile; ++j) {
+        if (j >= lt) break;
+        float s = fmaf(2.f, dot[j], -cn[j]);  // 2·dot is exact: one rounding
+        if (!(ms[j] > 0.f)) s = kNeg;
+        if (s > best) {
+          best = s;
+          code = l0 + j;
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites cn and ms
   }
   *best_score = best;
+  if (xnorm) *xnorm = xn;
   return code;
 }
 
@@ -153,7 +198,7 @@ __device__ __forceinline__ int assign_row_streamed(
 // (the right group wins only if its best is greater): this is assign_row's
 // result in every case (first index of the maximum; NaN scores never win),
 // with a shorter chain of dependent compares. Where best_score is given it
-// receives the winning score, assign_row_best's *best_score bit for bit.
+// receives the winning score, assign_tile's *best_score bit for bit.
 template <int L, int D, bool kMasked>
 __device__ __forceinline__ int assign_row_reg(const float (&xr)[D],
                                               const float (&cs)[L * D],

@@ -30,11 +30,12 @@
 //    warp's store covers 128 contiguous bytes. (Staging a warp's outputs in
 //    shared memory for 16-byte stores, and a codebook left in shared
 //    memory, were both slower on an H100: PERF.md.)
-//  * Route generic (any D <= 64, any L, a mask, any alignment): one block
-//    per tile of kThreads rows of one problem, read with coalesced loads
-//    into shared memory; the codebook streams through shared memory
-//    kLTile centroids at a time (assign.cuh's assign_row_streamed), so
-//    the block's shared memory does not grow with L.
+//  * Route generic (any D, any L, a mask, any alignment): one block per
+//    tile of kThreads rows of one problem, read with coalesced loads into
+//    shared memory kDTile dims at a time; the codebook streams through
+//    shared memory kLTile centroids at a time (assign.cuh's assign_tile,
+//    each row's dot products and ‖x‖² in registers), so the block's shared
+//    memory grows with neither L nor D.
 //  * The TPU kernel takes the cross term as an MXU matmul. Here the scores
 //    stay FMAs (no TF32 or bf16 mma, which would round the codebook): the
 //    code comes from assign.cuh, the routine lloyd_update and pq_quantize
@@ -109,20 +110,17 @@ assign_generic(const T* __restrict__ x, const float* __restrict__ c,
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - t0);
-  const int xstride = row_stride(d);
-  float* cs = smem;                     // [kLTile][d]
-  float* cn = cs + kLTile * d;          // [kLTile]
+  const int dc = chunk_dims(d);
+  float* cs = smem;                     // [kLTile][dc]
+  float* cn = cs + kLTile * dc;         // [kLTile]
   float* ms = cn + kLTile;              // [kLTile]
-  float* xs = ms + kLTile;              // [kThreads][xstride]
+  float* xs = ms + kLTile;              // [kThreads][row_stride(dc)]
 
-  load_tile(x + ((size_t)p * n + t0) * d, xs, rows, d);
-  const float* xr = tid < rows ? xs + tid * xstride : nullptr;
-  float best;
-  const int code = assign_row_streamed(xr, c + (size_t)p * l * d, lmask, cs,
-                                       cn, ms, l, d, &best);
-  if (xr) {
-    float xn = 0.f;
-    for (int k = 0; k < d; ++k) xn = fmaf(xr[k], xr[k], xn);
+  float best, xn;
+  const int code = assign_tile(x + ((size_t)p * n + t0) * d, rows,
+                               c + (size_t)p * l * d, lmask, l, d, xs, cs, cn,
+                               ms, &best, &xn);
+  if (tid < rows) {
     const size_t i = (size_t)p * n + t0 + tid;
     codes[i] = code;
     sqdist[i] = fmaxf(xn - best, 0.f);
@@ -166,8 +164,9 @@ template <typename T>
 cudaError_t launch_generic(const void* x, const void* c, const void* lmask,
                            void* codes, void* sqdist, int p, int n, int l,
                            int d, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
-                                       (size_t)kThreads * row_stride(d));
+  const int dc = chunk_dims(d);
+  const size_t smem = sizeof(float) * ((size_t)kLTile * dc + 2 * kLTile +
+                                       (size_t)kThreads * row_stride(dc));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         assign_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -36,28 +36,39 @@
 //    warps' sums are added in warp order, and the block writes one partial
 //    per output. The codebook and its norms are read into shared memory
 //    once per block, and from there into registers for the scores.
-//  * Route generic (any D <= 64, L up to the caller's threshold, any
+//  * Route generic (any D, L up to the caller's threshold, any
 //    alignment): each block takes rows_per_block rows in tiles of kThreads
 //    rows through shared memory, and every output element (l, k) has one
-//    owner thread that adds the tile's rows in row order. The block holds
-//    the codebook and the L·(D+1) sums in shared memory (generic_smem), so
-//    the caller takes it only for as long as the card keeps two such
-//    blocks resident per SM at D = 64 (lloyd_update_generic_max_l: 89 on
-//    an H100).
-//  * Route tiled (any D <= 64, any L; the caller takes it above that
+//    owner thread that adds the tile's rows in row order. At D <= kDTile
+//    the block holds the codebook and the L·(D+1) sums in shared memory
+//    (generic_smem), and a row tile is read once. Above kDTile a block
+//    takes one chunk of kDTile dims (the grid's z): it finds each row's
+//    code with assign.cuh's assign_tile (the rows and the codebook
+//    streamed in chunks, the dot products in registers), then reads its
+//    chunk of the tile and sums L·(kDTile+1) outputs. A block's shared
+//    memory is then that of D = kDTile at any D, so the caller's
+//    threshold, the largest L at which the card keeps two blocks resident
+//    per SM at D = kDTile (lloyd_update_generic_max_l: 89 on an H100),
+//    holds at every D and the route depends on L alone.
+//  * Route tiled (any D, any L; the caller takes it above that
 //    threshold, where the generic block's shared memory would crowd the
 //    SM: 123 KB of sums alone at L = 960, D = 32). Three kernels:
 //    lloyd_tiled_codes writes every row's code to a scratch array
-//    (assign.cuh's assign_row_streamed, the codebook streamed in tiles of
-//    kLTile centroids); lloyd_tiled_stats gives each block a tile of
-//    kLTile centroids and a range of rows_per_block rows, so it holds
-//    kLTile·(D+1) sums; in each row tile it buckets the rows whose code
-//    falls in its centroid tile by a stable counting sort in shared
+//    (assign.cuh's assign_tile, the codebook streamed in tiles of kLTile
+//    centroids and the rows in chunks of kDTile dims); lloyd_tiled_stats
+//    gives each block a tile of kLTile centroids, a chunk of kDTile dims
+//    and a range of rows_per_block rows, so it holds at most
+//    kLTile·(kDTile+1) sums; in each row tile it buckets the rows whose
+//    code falls in its centroid tile by a stable counting sort in shared
 //    memory, and each output's owner thread adds only its bucket's rows,
 //    in row order (the generic owner tests every row of the tile for
 //    every output); lloyd_reduce adds the row ranges' partials in block
 //    order. Each sum is the generic route's, term for term and in the same
 //    order, for the same rows_per_block.
+//  * Splitting D into chunks splits outputs, never a sum: every output
+//    still adds its rows in row order, and every dot product runs k
+//    ascending in one chain, so each route's sums at any D are those of
+//    the order lloyd_update_in_kernel_order writes out.
 //  * D and L are below tensor-core sizes: the distances are FMAs against a
 //    codebook in shared memory (assign.cuh), and the TPU kernel's one-hot
 //    matmul becomes an indexed read of the chosen centroid.
@@ -173,6 +184,9 @@ lloyd_d8(const T* __restrict__ x, const float* __restrict__ w,
 
 constexpr int kThreads = 256;  // rows per tile = threads per block
 
+// Block (b, p, z) adds rows [b·rows_per_block, (b+1)·rows_per_block) of
+// problem p into the sums of dims [z·kDTile, (z+1)·kDTile) and the counts
+// (z = 0 writes those), with one chunk, z = 0, at D <= kDTile.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
@@ -182,36 +196,47 @@ lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
   extern __shared__ float smem[];
   const int p = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   const int tid = threadIdx.x;
-  const int xstride = row_stride(d);
-  const int nout = l * (d + 1);  // per centroid: d deviation sums + 1 count
-  float* cs = smem;                      // [l][d]
-  float* cn = cs + l * d;                // [l]
+  const bool whole = d <= kDTile;
+  const int dc = chunk_dims(d), xstride = row_stride(dc);
+  const int k0 = blockIdx.z * kDTile, kc = min(dc, d - k0);
+  const int nout = l * (kc + 1);  // per centroid: kc deviation sums + 1 count
+  float* cs = smem;                      // [l][dc]
+  float* cn = cs + l * dc;               // [l]
   float* ms = cn + l;                    // [l]
-  float* acc = ms + l;                   // [nout]
-  float* xs = acc + nout;                // [kThreads][xstride]
+  float* acc = ms + l;                   // [l][kc+1]
+  float* xs = acc + l * (dc + 1);        // [kThreads][xstride]
   float* ws = xs + kThreads * xstride;   // [kThreads]
   int* cd = reinterpret_cast<int*>(ws + kThreads);  // [kThreads]
 
   for (int o = tid; o < nout; o += kThreads) acc[o] = 0.f;
-  load_codebook(c + (size_t)p * l * d, lmask, cs, cn, ms, l, d);
+  const float* cp = c + (size_t)p * l * d;
+  if (whole) load_codebook(cp, lmask, cs, cn, ms, l, d);
 
   const T* xp = x + (size_t)p * n * d;
   const float* wp = w ? w + (size_t)p * n : nullptr;
   const int row_end = min((b + 1) * rows_per_block, n);
   for (int t0 = b * rows_per_block; t0 < row_end; t0 += kThreads) {
     const int rows = min(kThreads, row_end - t0);
-    load_tile(xp + (size_t)t0 * d, xs, rows, d);
-    __syncthreads();
-    if (tid < rows) {
-      cd[tid] = assign_row(xs + tid * xstride, cs, cn, ms, l, d);
-      ws[tid] = wp ? wp[t0 + tid] : 1.f;
+    const T* xt = xp + (size_t)t0 * d;
+    if (whole) {
+      load_cols(xt, d, xs, rows, d, xstride);
+      __syncthreads();
+      if (tid < rows)
+        cd[tid] = assign_row(xs + tid * xstride, cs, cn, ms, l, d);
+    } else {
+      float best;  // assign_tile ends with a barrier: xs is free again
+      const int code = assign_tile(xt, rows, cp, lmask, l, d, xs, cs, cn, ms,
+                                   &best);
+      load_cols(xt + k0, d, xs, rows, kc, xstride);
+      if (tid < rows) cd[tid] = code;
     }
+    if (tid < rows) ws[tid] = wp ? wp[t0 + tid] : 1.f;
     __syncthreads();
     for (int o = tid; o < nout; o += kThreads) {
-      const int li = o / (d + 1), k = o % (d + 1);
+      const int li = o / (kc + 1), k = o % (kc + 1);
       float s = acc[o];
-      if (k < d) {
-        const float ck = cs[li * d + k];
+      if (k < kc) {
+        const float ck = whole ? cs[li * d + k] : cp[(size_t)li * d + k0 + k];
         for (int r = 0; r < rows; ++r)
           if (cd[r] == li) s += __fmul_rn(ws[r], xs[r * xstride + k] - ck);
       } else {
@@ -222,8 +247,14 @@ lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();  // the next tile overwrites xs, ws and cd
   }
-  float* out = partials + ((size_t)p * nb + b) * nout;
-  for (int o = tid; o < nout; o += kThreads) out[o] = acc[o];
+  float* out = partials + ((size_t)p * nb + b) * l * (d + 1);
+  for (int o = tid; o < nout; o += kThreads) {
+    const int li = o / (kc + 1), k = o % (kc + 1);
+    if (k < kc)
+      out[li * (d + 1) + k0 + k] = acc[o];
+    else if (k0 == 0)
+      out[li * (d + 1) + d] = acc[o];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -242,23 +273,24 @@ lloyd_tiled_codes(const T* __restrict__ x, const float* __restrict__ c,
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - t0);
-  const int xstride = row_stride(d);
-  float* cs = smem;                     // [kLTile][d]
-  float* cn = cs + kLTile * d;          // [kLTile]
+  const int dc = chunk_dims(d);
+  float* cs = smem;                     // [kLTile][dc]
+  float* cn = cs + kLTile * dc;         // [kLTile]
   float* ms = cn + kLTile;              // [kLTile]
-  float* xs = ms + kLTile;              // [kThreads][xstride]
+  float* xs = ms + kLTile;              // [kThreads][row_stride(dc)]
 
-  load_tile(x + ((size_t)p * n + t0) * d, xs, rows, d);
   float best;
-  const int code = assign_row_streamed(
-      tid < rows ? xs + tid * xstride : nullptr, c + (size_t)p * l * d,
-      lmask, cs, cn, ms, l, d, &best);
+  const int code = assign_tile(x + ((size_t)p * n + t0) * d, rows,
+                               c + (size_t)p * l * d, lmask, l, d, xs, cs, cn,
+                               ms, &best);
   if (tid < rows) codes[(size_t)p * n + t0 + tid] = code;
 }
 
-// Block (b, t, p) adds rows [b·rows_per_block, (b+1)·rows_per_block) of
-// problem p into the kLTile·(D+1) sums of centroids [t·kLTile, ...), and
-// writes them to its partial, laid out as lloyd_reduce reads it.
+// Block (b, t, p·chunks + z) adds rows [b·rows_per_block, (b+1)·
+// rows_per_block) of problem p into the sums of centroids [t·kLTile, ...)
+// over dims [z·kDTile, (z+1)·kDTile) and their counts (z = 0 writes
+// those), and writes them to its partial, laid out as lloyd_reduce reads
+// it.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
@@ -266,22 +298,25 @@ lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ partials, int n, int l, int d,
                   int rows_per_block) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x, nb = gridDim.x, p = blockIdx.z;
+  const int chunks = (d + kDTile - 1) / kDTile;
+  const int b = blockIdx.x, nb = gridDim.x, p = blockIdx.z / chunks;
   const int l0 = blockIdx.y * kLTile, lt = min(kLTile, l - l0);
+  const int dc = chunk_dims(d), k0 = (blockIdx.z % chunks) * kDTile;
+  const int kc = min(dc, d - k0);
   const int tid = threadIdx.x;
-  const int xstride = row_stride(d);
-  const int nout = lt * (d + 1);  // this tile's outputs
-  float* cs = smem;                            // [kLTile][d]
-  float* acc = cs + kLTile * d;                // [kLTile][d+1]
-  float* xs = acc + kLTile * (d + 1);          // [kThreads][xstride]
+  const int xstride = row_stride(dc);
+  const int nout = lt * (kc + 1);  // this block's outputs
+  float* cs = smem;                            // [kLTile][kc]
+  float* acc = cs + kLTile * dc;               // [kLTile][kc+1]
+  float* xs = acc + kLTile * (dc + 1);         // [kThreads][xstride]
   float* ws = xs + kThreads * xstride;         // [kThreads]
   int* cd = reinterpret_cast<int*>(ws + kThreads);  // [kThreads], local
   int* order = cd + kThreads;                  // [kThreads] rows by code
   int* cnt = order + kThreads;                 // [kLTile] bucket sizes
   int* start = cnt + kLTile;                   // [kLTile] bucket offsets
 
-  for (int e = tid; e < lt * d; e += kThreads)
-    cs[e] = c[((size_t)p * l + l0) * d + e];
+  for (int e = tid; e < lt * kc; e += kThreads)
+    cs[e] = c[((size_t)p * l + l0 + e / kc) * d + k0 + e % kc];
   for (int o = tid; o < nout; o += kThreads) acc[o] = 0.f;
 
   const T* xp = x + (size_t)p * n * d;
@@ -294,7 +329,7 @@ lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
       cd[tid] = cp[t0 + tid] - l0;  // in [0, lt) for this block's rows
       ws[tid] = wp ? wp[t0 + tid] : 1.f;
     }
-    load_tile(xp + (size_t)t0 * d, xs, rows, d);
+    load_cols(xp + (size_t)t0 * d + k0, d, xs, rows, kc, xstride);
     __syncthreads();
     // stable counting sort: thread j lists the tile's rows of local code j
     // in row order, after the rows of codes 0 .. j−1
@@ -313,12 +348,12 @@ lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();
     for (int o = tid; o < nout; o += kThreads) {
-      const int j = o / (d + 1), k = o % (d + 1);
+      const int j = o / (kc + 1), k = o % (kc + 1);
       const int* rs = order + start[j];
       const int m = cnt[j];
       float s = acc[o];
-      if (k < d) {
-        const float ck = cs[j * d + k];
+      if (k < kc) {
+        const float ck = cs[j * kc + k];
         for (int i = 0; i < m; ++i) {
           const int r = rs[i];
           s += __fmul_rn(ws[r], xs[r * xstride + k] - ck);
@@ -332,7 +367,13 @@ lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
   }
   float* out = partials + ((size_t)p * nb + b) * l * (d + 1) +
                (size_t)l0 * (d + 1);
-  for (int o = tid; o < nout; o += kThreads) out[o] = acc[o];
+  for (int o = tid; o < nout; o += kThreads) {
+    const int j = o / (kc + 1), k = o % (kc + 1);
+    if (k < kc)
+      out[j * (d + 1) + k0 + k] = acc[o];
+    else if (k0 == 0)
+      out[j * (d + 1) + d] = acc[o];
+  }
 }
 
 // One block per problem: adds the nb partials of each output in block order.
@@ -430,12 +471,14 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
                               (int)smem);
 }
 
-// A generic block's dynamic shared memory: the codebook, its norms and
-// mask, the L·(D+1) sums, a tile of kThreads rows at an odd stride, their
-// weights and codes.
+// A generic block's dynamic shared memory: the codebook (at D > kDTile a
+// chunk of a tile of it), its norms and mask, the sums, a tile of kThreads
+// rows (a chunk of each at D > kDTile) at an odd stride, their weights and
+// codes. It does not grow with D above kDTile.
 size_t generic_smem(int l, int d) {
-  return sizeof(float) * ((size_t)l * d + 2 * l + (size_t)l * (d + 1) +
-                          (size_t)kThreads * row_stride(d) + kThreads) +
+  const int dc = chunk_dims(d);
+  return sizeof(float) * ((size_t)l * dc + 2 * l + (size_t)l * (dc + 1) +
+                          (size_t)kThreads * row_stride(dc) + kThreads) +
          sizeof(int) * kThreads;
 }
 
@@ -462,7 +505,8 @@ cudaError_t launch_generic(const void* x, const void* w, const void* c,
   cudaError_t e =
       allow_smem(reinterpret_cast<const void*>(lloyd_generic<T>), smem);
   if (e != cudaSuccess) return e;
-  lloyd_generic<T><<<dim3(nblocks, p), kThreads, smem, s>>>(
+  const int chunks = (d + kDTile - 1) / kDTile;
+  lloyd_generic<T><<<dim3(nblocks, p, chunks), kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(c), static_cast<const float*>(lmask),
       static_cast<float*>(partials), n, l, d, rows_per_block);
@@ -474,12 +518,13 @@ cudaError_t launch_tiled(const void* x, const void* w, const void* c,
                          const void* lmask, void* codes, void* partials,
                          int p, int n, int l, int d, int rows_per_block,
                          int nblocks, cudaStream_t s) {
+  const int dc = chunk_dims(d), chunks = (d + kDTile - 1) / kDTile;
   const size_t smem_codes =
-      sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
-                       (size_t)kThreads * row_stride(d));
+      sizeof(float) * ((size_t)kLTile * dc + 2 * kLTile +
+                       (size_t)kThreads * row_stride(dc));
   const size_t smem_stats =
-      sizeof(float) * ((size_t)kLTile * d + (size_t)kLTile * (d + 1) +
-                       (size_t)kThreads * row_stride(d) + kThreads) +
+      sizeof(float) * ((size_t)kLTile * dc + (size_t)kLTile * (dc + 1) +
+                       (size_t)kThreads * row_stride(dc) + kThreads) +
       sizeof(int) * (2 * kThreads + 2 * kLTile);
   cudaError_t e = allow_smem(
       reinterpret_cast<const void*>(lloyd_tiled_codes<T>), smem_codes);
@@ -493,7 +538,7 @@ cudaError_t launch_tiled(const void* x, const void* w, const void* c,
       static_cast<const float*>(lmask), static_cast<int*>(codes), n, l, d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid(nblocks, (l + kLTile - 1) / kLTile, p);
+  const dim3 grid(nblocks, (l + kLTile - 1) / kLTile, p * chunks);
   lloyd_tiled_stats<T><<<grid, kThreads, smem_stats, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(c), static_cast<const int*>(codes),

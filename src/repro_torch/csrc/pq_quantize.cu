@@ -22,14 +22,17 @@
 //    and each code as one int32, coalesced across the warp. Nothing goes
 //    through shared memory on the way out, and there is no barrier per
 //    tile.
-//  * Route generic (any D <= 64, any L, any alignment): one block per tile
-//    of kThreads rows of one problem, read into shared memory; the
-//    codebook streams through shared memory kLTile centroids at a time
-//    (assign.cuh's assign_row_streamed), so the block's shared memory does
-//    not grow with L. z̃ and the residual are written element by element,
-//    the chosen centroid read from shared memory where the codebook is one
-//    tile, else from device memory (L2-resident: at L = 960, D = 32 a
-//    problem's codebook is 123 KB).
+//  * Route generic (any D, any L, any alignment): one block per tile of
+//    kThreads rows of one problem; the codebook streams through shared
+//    memory kLTile centroids at a time and the rows kDTile dims at a time
+//    (assign.cuh's assign_tile, each row's dot products in registers), so
+//    the block's shared memory grows with neither L nor D. z̃ and the
+//    residual are written element by element, the chosen centroid read
+//    from shared memory where the codebook is one tile of one chunk, else
+//    from device memory (L2-resident: at L = 960, D = 32 a problem's
+//    codebook is 123 KB), and x from shared memory where a row is one
+//    chunk, else read again from device memory (where a block's 256 rows
+//    of D = 9216 f32 values, 9.4 MB, were read a moment before).
 //  * The TPU kernel gathers the centroid with a one-hot matmul, an MXU
 //    idiom. Here the codebook sits in shared memory and the gather is an
 //    indexed read of it; the assignment is FMAs (assign.cuh).
@@ -111,32 +114,33 @@ pq_generic(const T* __restrict__ x, const float* __restrict__ c,
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kThreads;
   const int rows = min(kThreads, n - t0);
-  const int xstride = row_stride(d);
-  float* cs = smem;                     // [kLTile][d]
-  float* cn = cs + kLTile * d;          // [kLTile]
+  const bool whole = d <= kDTile;
+  const int dc = chunk_dims(d), xstride = row_stride(dc);
+  float* cs = smem;                     // [kLTile][dc]
+  float* cn = cs + kLTile * dc;         // [kLTile]
   float* ms = cn + kLTile;              // [kLTile]
   float* xs = ms + kLTile;              // [kThreads][xstride]
   int* cd = reinterpret_cast<int*>(xs + kThreads * xstride);  // [kThreads]
 
   const size_t base = ((size_t)p * n + t0) * d;
   const float* cp = c + (size_t)p * l * d;
-  load_tile(x + base, xs, rows, d);  // the first tile's barrier orders it
   float best;
-  const int code = assign_row_streamed(
-      tid < rows ? xs + tid * xstride : nullptr, cp, lmask, cs, cn, ms, l, d,
-      &best);
+  const int code = assign_tile(x + base, rows, cp, lmask, l, d, xs, cs, cn,
+                               ms, &best);
   if (tid < rows) {
     cd[tid] = code;
     codes[(size_t)p * n + t0 + tid] = code;
   }
   __syncthreads();
-  // a codebook of one tile is still in cs (the same values as c)
-  const float* zc = l <= kLTile ? cs : cp;
+  // a codebook of one tile and one chunk is still in cs (c's values), and
+  // rows of one chunk are still in xs
+  const float* zc = whole && l <= kLTile ? cs : cp;
   for (int e = tid; e < rows * d; e += kThreads) {
     const int r = e / d, k = e % d;
     const float z = zc[(size_t)cd[r] * d + k];
+    const float xv = whole ? xs[r * xstride + k] : to_f32(x[base + e]);
     store_one(zt + base + e, z);
-    resid[base + e] = xs[r * xstride + k] - z;
+    resid[base + e] = xv - z;
   }
 }
 
@@ -180,9 +184,10 @@ template <typename T>
 cudaError_t launch_generic(const void* x, const void* c, const void* lmask,
                            void* zt, void* resid, void* codes, int p, int n,
                            int l, int d, cudaStream_t s) {
+  const int dc = chunk_dims(d);
   const size_t smem =
-      sizeof(float) * ((size_t)kLTile * d + 2 * kLTile +
-                       (size_t)kThreads * row_stride(d)) +
+      sizeof(float) * ((size_t)kLTile * dc + 2 * kLTile +
+                       (size_t)kThreads * row_stride(dc)) +
       sizeof(int) * kThreads;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

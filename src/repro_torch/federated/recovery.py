@@ -70,12 +70,17 @@ __all__ = ["snapshot_runtime", "restore_runtime", "run_with_recovery",
 def _ref_tree(tree: Any, names) -> Any:
     """A port optimizer-state tree in the reference's layout: a dict keyed
     by the parameter names becomes ``{client: {...}, server: {...}}``
-    (conv weights HWIO), an int step an int32 0-d array."""
+    (conv weights HWIO; a parameter's sub-tree, such as Adafactor's
+    ``{"row", "col"}``, is kept in the reference's layout already), an int
+    step an int32 0-d array."""
     if isinstance(tree, dict) and tree and set(tree) == names:
-        if not all(torch.is_tensor(v) for v in tree.values()):
-            raise ValueError("per-parameter optimizer sub-trees "
-                             "(Adafactor's) have no snapshot layout")
-        return to_jax_params(tree)
+        if all(torch.is_tensor(v) for v in tree.values()):
+            return to_jax_params(tree)
+        out: Dict[str, Dict[str, Any]] = {}
+        for key, sub in tree.items():
+            part, name = key.split(".", 1)
+            out.setdefault(part, {})[name] = _ref_tree(sub, names)
+        return out
     if isinstance(tree, dict):
         return {k: _ref_tree(v, names) for k, v in tree.items()}
     if isinstance(tree, int):
@@ -121,11 +126,16 @@ def _fill(template: Any, it, names, device) -> Any:
     """The port tree shaped like ``template`` with its leaves taken, in the
     reference's order, from ``it``."""
     if isinstance(template, dict) and template and set(template) == names:
-        parts: Dict[str, Dict[str, None]] = {}
-        for key in template:
+        parts: Dict[str, Dict[str, Any]] = {}
+        for key, sub in template.items():
             part, name = key.split(".", 1)
-            parts.setdefault(part, {})[name] = None
-        got = from_jax_params(_take(parts, it, device))
+            parts.setdefault(part, {})[name] = sub
+        taken = _take(parts, it, device)
+        if all(torch.is_tensor(v) for v in template.values()):
+            got = from_jax_params(taken)
+        else:
+            got = {f"{part}.{name}": v for part, sub in taken.items()
+                   for name, v in sub.items()}
         return {k: got[k] for k in template}
     if isinstance(template, dict):
         out = {k: _fill(template[k], it, names, device)

@@ -13,9 +13,9 @@ exactly), so a bf16 x gives bitwise its f32 upcast's codes and distances.
 Two routes, picked by ``assign_route``: ``d8`` (no mask and what
 ``lloyd_update.d8_rows`` takes: D = 8, L in ``D8_L``, x 16-byte aligned;
 persistent blocks stream whole rows into registers) and ``generic`` (any
-D <= 64, any L, a mask, any alignment: the codebook streamed through
-shared memory in tiles of ``TILE_L`` centroids). Both give the same codes
-and distances bit for bit.
+D, any L, a mask, any alignment: the codebook streamed through shared
+memory in tiles of ``TILE_L`` centroids, the rows in chunks of ``D_TILE``
+dims). Both give the same codes and distances bit for bit.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. The kernel takes its codes from the same

@@ -15,11 +15,13 @@ valid), and the kernel then reads neither.
 Three routes, picked by ``row_route``: ``d8`` (D = 8, L in ``D8_L``, x
 16-byte aligned: persistent blocks stream whole rows into registers, sums
 per thread in shared memory, an xor-shuffle tree per warp), ``generic``
-(any D <= 64, L up to ``generic_max_l``: tiles in shared memory with the
-whole codebook, one owner thread per output) and ``tiled`` (any D <= 64,
-any larger L: the codes first, then blocks of a centroid tile by a row
-range that bucket each row tile by code, one owner per output adding its
-bucket's rows). All write per-block partials that a last pass adds in
+(any D, L up to ``generic_max_l``: tiles in shared memory with the whole
+codebook, one owner thread per output; above ``D_TILE`` dims a block per
+chunk of ``D_TILE`` dims) and ``tiled`` (any D, any larger L: the codes
+first, then blocks of a centroid tile by a chunk of dims by a row range
+that bucket each row tile by code, one owner per output adding its
+bucket's rows). Chunks of dims split the outputs, never a sum, so the
+order of every sum is the same at any D. All write per-block partials that a last pass adds in
 block order: no atomics, so a run is bitwise the run before it.
 ``lloyd_layout`` gives a call's route and grid, and
 ``lloyd_update_in_kernel_order`` sums the plain version's terms in that
@@ -47,11 +49,12 @@ D8_TILE = 4 * D8_THREADS  # d8 route: rows per tile, 4 per thread
 D8_MIN_TILES = 2        # d8 route: tiles a block takes at least, where the
 #                         problem has them (measured on an H100, PERF.md)
 D8_L = (2, 4, 8, 16)    # the d8 route's compiled codebook sizes
-MAX_D = 64
 TILE_L = 64             # tiled route: centroids a tile (csrc/assign.cuh's
 #                         kLTile)
+D_TILE = 64             # generic and tiled routes: dims a chunk
+#                         (csrc/assign.cuh's kDTile)
 GENERIC_MIN_BLOCKS = 2  # generic route: blocks it keeps resident per SM
-#                         at D = MAX_D; above the L where it cannot, tiled
+#                         at D = D_TILE; above the L where it cannot, tiled
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 ROUTE_IDS = {"generic": 0, "d8": 1, "tiled": 2}   # the launchers' route
@@ -79,15 +82,17 @@ def _generic_max_l(device: int) -> int:
     lib = _build.load("lloyd_update", "lloyd_update_generic_max_l",
                       [ctypes.c_int] * 2)
     with torch.cuda.device(device):
-        return lib.lloyd_update_generic_max_l(MAX_D, GENERIC_MIN_BLOCKS)
+        return lib.lloyd_update_generic_max_l(D_TILE, GENERIC_MIN_BLOCKS)
 
 
 def generic_max_l(device: torch.device) -> int:
     """The largest L the generic route takes on this card: the largest at
-    which a generic block at D = MAX_D still leaves ``GENERIC_MIN_BLOCKS``
+    which a generic block at D = D_TILE still leaves ``GENERIC_MIN_BLOCKS``
     resident per SM, as the library works it out from the block's shared
-    memory and the card's (89 on an H100). One threshold for every D, so
-    that a call's route depends on L alone. Asked once per card, before any
+    memory and the card's (89 on an H100). A block's shared memory is
+    largest at D = D_TILE (above it, a block holds one chunk of D_TILE
+    dims), so the threshold holds at every D and a call's route depends on
+    L alone. Asked once per card, before any
     graph capture."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -168,7 +173,7 @@ def check_cuda_inputs(name: str, x: torch.Tensor, centroids: torch.Tensor,
                       weights: Optional[torch.Tensor] = None) -> None:
     """What the CUDA kernels take, on one CUDA device, all contiguous: x
     (P, N, D) f32 or bf16, centroids (P, L, D) f32, lmask (L,) f32 or None,
-    weights (P, N) f32 or None; D <= MAX_D, any L >= 1."""
+    weights (P, N) f32 or None; any D >= 1, any L >= 1."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {x.device}")
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16) \
@@ -195,9 +200,9 @@ def check_cuda_inputs(name: str, x: torch.Tensor, centroids: torch.Tensor,
                          f"weights "
                          f"{None if weights is None else tuple(weights.shape)}"
                          f" do not match")
-    if not 1 <= d <= MAX_D or centroids.shape[1] < 1:
-        raise ValueError(f"{name}: the kernel takes 1 <= D <= {MAX_D} and "
-                         f"L >= 1; got D={d}, L={centroids.shape[1]}")
+    if d < 1 or centroids.shape[1] < 1:
+        raise ValueError(f"{name}: the kernel takes D >= 1 and L >= 1; got "
+                         f"D={d}, L={centroids.shape[1]}")
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -9,9 +9,9 @@ centroid mask is optional (None: every centroid valid).
 
 Two routes, picked by ``pq_route``: ``d8`` (D = 8, L in ``D8_L``, x
 16-byte aligned: persistent blocks stream whole rows into registers and
-write each row with 16-byte stores) and ``generic`` (any D <= 64, any L,
-any alignment: the codebook streamed through shared memory in tiles of
-``TILE_L`` centroids).
+write each row with 16-byte stores) and ``generic`` (any D, any L, any
+alignment: the codebook streamed through shared memory in tiles of
+``TILE_L`` centroids, the rows in chunks of ``D_TILE`` dims).
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. Wherever kernel and plain version pick

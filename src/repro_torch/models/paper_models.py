@@ -47,6 +47,7 @@ from repro_torch.core.compressors import (CutCompressor, CutState,
                                           make_compressor)
 from repro_torch.core.correction import quantize_with_correction_stats
 from repro_torch.core.quantizer import PQConfig
+from repro_torch.models.layout import inverse, ref_axes
 
 
 def _maybe_quantize(x: torch.Tensor, pq: Optional[PQConfig], lam,
@@ -360,24 +361,23 @@ class SONwpLSTM(nn.Module):
         return ok.sum() / mask.sum().clamp_min(1)
 
 
-def _is_conv_weight(name: str) -> bool:
-    return name.startswith("conv") and name.endswith("_w")
-
-
 def from_jax_params(params: Mapping[str, Mapping[str, object]]
                     ) -> Dict[str, torch.Tensor]:
     """Reference params ({"client": {...}, "server": {...}} of arrays) of
     any of the three models -> the module's state dict: conv weights HWIO
-    -> OIHW, the rest (dense, embedding, LSTM) as is, (in, out). Arrays
-    become f32 CPU tensors; tensors keep their dtype and device."""
+    -> OIHW (``layout.ref_axes``), the rest (dense, embedding, LSTM) as
+    is, (in, out). Arrays become f32 CPU tensors; tensors keep their dtype
+    and device."""
     out = {}
     for part, leaves in params.items():
         for name, value in leaves.items():
             t = value if torch.is_tensor(value) else \
                 torch.from_numpy(np.array(value, dtype=np.float32))
-            if _is_conv_weight(name):
-                t = t.permute(3, 2, 0, 1).contiguous()
-            out[f"{part}.{name}"] = t
+            key = f"{part}.{name}"
+            axes = ref_axes(key)
+            if axes is not None:
+                t = t.permute(inverse(axes)).contiguous()
+            out[key] = t
     return out
 
 
@@ -390,7 +390,8 @@ def to_jax_params(params: Mapping[str, torch.Tensor]
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, t in params.items():
         part, name = key.split(".", 1)
-        if _is_conv_weight(name):
-            t = t.permute(2, 3, 1, 0).contiguous()
+        axes = ref_axes(key)
+        if axes is not None:
+            t = t.permute(axes).contiguous()
         out.setdefault(part, {})[name] = t
     return out

@@ -24,6 +24,8 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.layout import inverse, ref_axes
+
 Schedule = Callable[[int], float]
 Tensors = Dict[str, torch.Tensor]
 
@@ -150,12 +152,25 @@ def adafactor(lr, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second-moment estimator (Shazeer & Stern, 2018), no
     momentum. A parameter of rank >= 2 keeps its f32 second moment as a
-    row vector and a column vector over its last two dims; the update's
-    RMS is clipped to ``clip_threshold``."""
+    row vector and a column vector over the last two dims of the
+    parameter in the reference's layout (``models.layout.ref_axes``: a
+    paper model's OIHW conv weight is factored over I and O, as the
+    reference factors its HWIO one), and keeps them in that layout; the
+    update's RMS is clipped to ``clip_threshold``."""
     sched = _as_schedule(lr)
 
+    def in_ref(key: str, t: torch.Tensor) -> torch.Tensor:
+        axes = ref_axes(key)
+        return t if axes is None else t.permute(axes).contiguous()
+
+    def from_ref(key: str, t: torch.Tensor) -> torch.Tensor:
+        axes = ref_axes(key)
+        return t if axes is None else \
+            t.permute(inverse(axes)).contiguous()
+
     def init(params):
-        def zs(p):
+        def zs(key, p):
+            p = in_ref(key, p)
             if p.dim() >= 2:
                 return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32,
                                            device=p.device),
@@ -163,7 +178,7 @@ def adafactor(lr, eps: float = 1e-30,
                                            dtype=torch.float32,
                                            device=p.device)}
             return {"full": torch.zeros_like(p, dtype=torch.float32)}
-        return {"step": 0, "v": {k: zs(p) for k, p in params.items()}}
+        return {"step": 0, "v": {k: zs(k, p) for k, p in params.items()}}
 
     def update(grads, state, params):
         del params
@@ -173,7 +188,7 @@ def adafactor(lr, eps: float = 1e-30,
         upd, new_v = {}, {}
         for k, g in grads.items():
             v = state["v"][k]
-            g32 = g.float()
+            g32 = in_ref(k, g.float())
             g2 = g32.square() + eps
             if "full" in v:
                 vn = beta * v["full"] + one_minus * g2
@@ -188,7 +203,7 @@ def adafactor(lr, eps: float = 1e-30,
                 new_v[k] = {"row": row, "col": col}
             u = g32 / rms.clamp_min(eps)
             urms = (u.square().mean() + eps).sqrt()
-            u = u / (urms / clip_threshold).clamp_min(1.0)
+            u = from_ref(k, u / (urms / clip_threshold).clamp_min(1.0))
             upd[k] = (u * -lr_t).to(g.dtype)
         return upd, {"step": step, "v": new_v}
 

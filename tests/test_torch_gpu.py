@@ -758,6 +758,84 @@ def test_tiled_three_kernels_pick_the_same_codes_on_card(l):
     assert torch.equal(codes_a[0], cnt.argmax(-1).to(torch.int32))
 
 
+# the three clustering kernels at D above one chunk of dims (D_TILE = 64):
+# (D, L, P, N) with lloyd_update on its generic route (L <= 64) or its
+# tiled one ("threshold + 1"); D = 9216 is vanilla k-means on the FEMNIST
+# cut (20 rows), D = 96 the FEMNIST example at --q 96 and SO NWP at q = 1
+ANY_D = [(65, 3, 2, 700), (96, 2, 3, 1920), (128, 20, 2, 600),
+         (96, "threshold + 1", 2, 500), (9216, 2, 1, 20),
+         (9216, 64, 1, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,l,p,n", ANY_D)
+def test_three_kernels_at_any_d_on_card(d, l, p, n, dtype):
+    """Above D = 64, where the kernels refused D before: lloyd_update's
+    counts exact and dsums bitwise the plain version in its route's order
+    (chunks of dims split outputs, never a sum) and run to run, a bf16 x
+    bitwise its f32 upcast; pq_quantize's and kmeans_assign's codes equal
+    the plain version's but for near-ties and each other's, z̃ and the
+    residual bitwise where codes agree, distances within the f32 rounding
+    bound of two orders of D-term chains. Near-tie rows weigh 0."""
+    dev = _cuda_or_skip()
+    l = _large_l(l, dev)
+    x, c = _inputs(36, dev, p, n, d, l)
+    x = x.to(dtype)
+    lay = lloyd_layout(x, l)
+    assert lay.route == ("generic" if l <= 64 else "tiled")
+    assert pq_route(x, l) == assign_route(x, l, None) == "generic"
+    ties = ref.near_ties(x, c, None)
+    w = torch.where(ties, 0.0, torch.ones(p, n, device=dev)).contiguous()
+    ds, cnt = lloyd_update_kernel(x, w, c)
+    ds2, cnt2 = lloyd_update_kernel(x, w, c)
+    ds_f, cnt_f = lloyd_update_kernel(x.float(), w, c)
+    ds_o, cnt_o = lloyd_update_in_kernel_order(x, w, c, None, lay)
+    _, cnt_r = ref.lloyd_update_ref(x, w, c)
+    assert torch.equal(ds, ds2) and torch.equal(cnt, cnt2)
+    assert torch.equal(ds, ds_f) and torch.equal(cnt, cnt_f)
+    assert torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_o)
+    assert torch.equal(ds, ds_o)
+    zt, resid, codes = pq_quantize_kernel(x, c)
+    zt_r, resid_r, codes_r = ref.pq_quantize_ref(x, c)
+    same = codes == codes_r
+    assert not bool((~same & ~ties).any())
+    assert torch.equal(zt[same], zt_r[same])
+    assert torch.equal(resid[same], resid_r[same])
+    ka, sq = kmeans_assign_kernel(x, c)
+    _, sq_r = ref.kmeans_assign_ref(x, c)
+    assert torch.equal(ka, codes)
+    # ‖x‖² − best from chains of D terms, summed in another order by the
+    # plain version's matmul: each within γ_D·Σ(|x_k| + |c_k|)² of exact
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    mag = (x.float().abs() + ref._gather_rows(c, codes.long()).abs()) \
+        .square().sum(-1)
+    tol = 2 * gamma * mag
+    assert bool(((sq - sq_r).abs()[same] <= tol[same]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [2, 8, 32, 64])
+def test_vanilla_kmeans_on_the_femnist_cut_on_card(l):
+    """kmeans() as Fig. 3's vanilla k-means runs it: 20 rows of the 9216-wide
+    cut, one codebook of L, through the kernels ("auto") and the plain
+    versions ("torch") on the card: the same codes but for near-ties, and
+    centroids within f32 reordering."""
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    x = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (20, 9216)).astype(np.float32)).to(dev)
+    _build.reset_launch_counts()
+    c_k, codes_k, _ = kmeans(x, l, 6, backend="auto")
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("lloyd_update") == 6
+    c_t, codes_t, _ = kmeans(x, l, 6, backend="torch")
+    assert torch.equal(codes_k, codes_t)
+    assert torch.allclose(c_k, c_t, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.gpu
 def test_so_tag_round_at_l100_on_card():
     """One SO Tag round at full width, PQ q = 125 L = 100 (D = 16): the

@@ -13,6 +13,7 @@ The CUDA kernels themselves run only on a card: ``test_torch_gpu.py``.
 import ast
 import ctypes
 import ctypes.util
+import re
 from pathlib import Path
 
 import jax
@@ -39,7 +40,8 @@ from repro_torch.kernels.kmeans_assign import (assign_route,
 from repro_torch.kernels.lloyd_update import (Layout, d8_blocks,
                                               lloyd_update_in_kernel_order,
                                               lloyd_update_kernel, row_route)
-from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+from repro_torch.kernels import lloyd_update as tlu
+from repro_torch.kernels.pq_quantize import pq_quantize_kernel, pq_route
 from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
                                               scalar_route,
@@ -323,6 +325,44 @@ def test_lloyd_update_fixed_points_exact():
 # ---------------------------------------------------------------------------
 # pq_quantize and kmeans_assign
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [65, 96, 128])
+def test_clustering_kernels_above_one_chunk_of_dims_match_jax(d,
+                                                             monkeypatch):
+    """Above ``D_TILE`` dims (the CUDA sources' kDTile, a chunk of dims)
+    the routes are chosen as below it, by L alone (generic up to the
+    card's threshold, an H100's 89 standing in for it, tiled above;
+    pq_quantize and kmeans_assign generic); the wrappers' plain versions
+    match the Pallas kernels in interpret mode at that D."""
+    src = (Path(tlu.__file__).parents[1] / "csrc" / "assign.cuh").read_text()
+    assert re.search(r"constexpr int kDTile = (\d+);", src)[1] \
+        == str(tlu.D_TILE)
+    monkeypatch.setattr(tlu, "generic_max_l", lambda device: 89)
+    x, c = _inputs(d, 2, 150, d, 3)
+    assert row_route(_t(x), 3) == row_route(_t(x), 89) == "generic"
+    assert row_route(_t(x), 90) == "tiled"
+    assert pq_route(_t(x), 3) == assign_route(_t(x), 3, None) == "generic"
+    ds, ct = tops.lloyd_update(_t(x), _t(c))
+    zt, resid, codes = tops.pq_quantize(_t(x), _t(c))
+    ka, sq = tops.kmeans_assign(_t(x), _t(c))
+    for p in range(2):
+        xj, cj = jnp.asarray(x[p]), jnp.asarray(c[p])
+        ds_k, ct_k = jops.lloyd_update(xj, cj, block_n=64, interpret=True)
+        np.testing.assert_allclose(ds[p].numpy(), np.asarray(ds_k),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_array_equal(ct[p].numpy(), np.asarray(ct_k))
+        zt_k, resid_k, codes_k = jops.pq_quantize(xj, cj, block_n=64,
+                                                  interpret=True)
+        np.testing.assert_array_equal(codes[p].numpy(), np.asarray(codes_k))
+        np.testing.assert_allclose(zt[p].numpy(), np.asarray(zt_k),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(resid[p].numpy(), np.asarray(resid_k),
+                                   rtol=1e-6, atol=1e-5)
+        ka_k, sq_k = jops.kmeans_assign(xj, cj, block_n=64, interpret=True)
+        np.testing.assert_array_equal(ka[p].numpy(), np.asarray(ka_k))
+        tol = 1e-5 * (1 + (x[p] ** 2).sum(-1))
+        assert (np.abs(sq[p].numpy() - np.asarray(sq_k)) <= tol).all()
+
 
 @pytest.mark.parametrize("n,d,l", [(64, 8, 4), (513, 8, 5), (128, 16, 16)])
 def test_pq_quantize_matches_jax(n, d, l):

@@ -124,3 +124,87 @@ def test_get_optimizer_table():
     assert toptim.get_optimizer("adam", 0.1, b1=0.5).name == "adam"
     with pytest.raises(KeyError):
         toptim.get_optimizer("lamb", 0.1)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor on the paper models' conv weights (OIHW here, HWIO in the
+# reference): factored over I and O, as the reference factors them
+# ---------------------------------------------------------------------------
+
+def _update_close(got, want, name):
+    """Within rtol 1e-5 and 1e-5 of the update's max: factored over the
+    port's kH and kW, the update was 2.70x its max off."""
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+def test_adafactor_conv_gradient_matches_jax():
+    """Five steps on a (3, 3, 1, 32) conv weight and its bias: updates and
+    factors (kept in the reference's layout: row (kH, kW, I), col (kH, kW,
+    O)) as the reference's."""
+    from repro_torch.models.paper_models import from_jax_params
+
+    r = np.random.default_rng(4)
+    hwio = r.standard_normal((3, 3, 1, 32)).astype(np.float32)
+    jp = {"client": {"conv1_w": jnp.asarray(hwio),
+                     "conv1_b": jnp.zeros(32)}}
+    tp = from_jax_params({"client": {"conv1_w": hwio,
+                                     "conv1_b": np.zeros(32, np.float32)}})
+    assert tp["client.conv1_w"].shape == (32, 1, 3, 3)
+    jopt, topt = joptim.adafactor(0.01), toptim.adafactor(0.01)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(5):
+        g = {"conv1_w": (r.standard_normal((3, 3, 1, 32))
+                         * 10.0 ** r.uniform(-3, 1)).astype(np.float32),
+             "conv1_b": r.standard_normal(32).astype(np.float32)}
+        ju, js = jopt.update({"client": {k: jnp.asarray(v)
+                                         for k, v in g.items()}}, js, jp)
+        tu, ts = topt.update(from_jax_params({"client": g}), ts, tp)
+        _update_close(tu["client.conv1_w"].permute(2, 3, 1, 0).numpy(),
+                      np.asarray(ju["client"]["conv1_w"]), f"step {step}")
+        _update_close(tu["client.conv1_b"].numpy(),
+                      np.asarray(ju["client"]["conv1_b"]), f"step {step}")
+        for part in ("row", "col"):
+            np.testing.assert_allclose(
+                ts["v"]["client.conv1_w"][part].numpy(),
+                np.asarray(js["v"]["client"]["conv1_w"][part]),
+                rtol=RTOL, atol=ATOL, err_msg=part)
+        jp = jax.tree.map(lambda a, b: a + b, jp, ju)
+        tp = {k: tp[k] + tu[k] for k in tp}
+
+
+def test_adafactor_femnist_step_matches_jax():
+    """One FedLite step of FemnistCNN (q = 1152, L = 2) under Adafactor
+    from the same params and batch: every parameter's update as the
+    reference's, the conv weights' included."""
+    from repro.core.fedlite import TrainState as JTrainState
+    from repro.core.fedlite import make_train_step as j_make_train_step
+    from repro.core.quantizer import PQConfig as JPQConfig
+    from repro.data.synthetic import make_federated_image_data as j_data
+    from repro.models.paper_models import FemnistCNN as JFemnistCNN
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.models.paper_models import FemnistCNN, from_jax_params
+
+    jm = JFemnistCNN(pq=JPQConfig(1152, 2, kmeans_iters=5, backend="jnp"),
+                     lam=1e-4)
+    tm = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=5, backend="torch"),
+                    lam=1e-4, device="cpu")
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tm.load_state_dict(from_jax_params(params))
+    b = j_data(num_clients=4, seed=0).sample_batch(
+        0, jax.random.PRNGKey(1), 8)
+    js = JTrainState.create(jax.tree.map(jnp.asarray, params),
+                            joptim.adafactor(0.01))
+    ts = TrainState.create(dict(tm.named_parameters()),
+                           toptim.adafactor(0.01))
+    js2, _ = j_make_train_step(jm, joptim.adafactor(0.01),
+                               donate=False)(js, b)
+    ts2, _ = make_train_step(tm, toptim.adafactor(0.01))(ts, {
+        "image": torch.from_numpy(np.array(b["image"])),
+        "label": torch.from_numpy(np.asarray(b["label"]).astype(np.int64))})
+    before = from_jax_params(params)
+    want = from_jax_params(jax.tree.map(np.asarray, js2.params))
+    for k, p in ts2.params.items():
+        _update_close((p.detach() - before[k]).numpy(),
+                      (want[k] - before[k]).numpy(), k)

@@ -37,20 +37,20 @@ from repro_torch.federated import (FaultPlan, FederatedTrainer, ServerKilled,
                                    restore_runtime, run_with_recovery)
 from repro_torch.federated.recovery import state_from_leaves, state_leaves
 from repro_torch.models.paper_models import FemnistCNN, from_jax_params
-from repro_torch.optim import adam, sgd
+from repro_torch.optim import adafactor, adam, sgd
 
 CPU = torch.device("cpu")
 LOSS_RTOL = 1e-4
 
 
-def _chaos_trainer(plan, seed=0, client_batch=0, **kw):
+def _chaos_trainer(plan, seed=0, client_batch=0, optimizer=None, **kw):
     data = make_federated_image_data(num_clients=8, seed=0, device=CPU)
     pq = PQConfig(num_subvectors=288, num_clusters=4, kmeans_iters=2)
     model = FemnistCNN(pq=pq, lam=1e-4, client_batch=client_batch,
                        device=CPU)
-    return FederatedTrainer(model, sgd(0.03), data, cohort=4, client_batch=8,
-                            quantize=True, seed=seed, fault_plan=plan,
-                            device=CPU, **kw)
+    return FederatedTrainer(model, optimizer or sgd(0.03), data, cohort=4,
+                            client_batch=8, quantize=True, seed=seed,
+                            fault_plan=plan, device=CPU, **kw)
 
 
 def _np(x):
@@ -128,6 +128,35 @@ def test_checkpoint_every_must_be_positive(tmp_path):
     with pytest.raises(ValueError, match="positive"):
         run_with_recovery(_chaos_trainer(None), 3, 0, str(tmp_path),
                           checkpoint_every=0)
+
+
+def test_adafactor_kill_and_resume_is_bitwise_identical(tmp_path):
+    """An Adafactor run (per-parameter factors, the conv weights' over I and
+    O) killed at round 3 and restored from its round-2 snapshot is bitwise
+    the run never killed; the snapshot's leaves are the reference's
+    ``jax.tree.leaves`` of its Adafactor TrainState, in order and shape."""
+    from repro.core.fedlite import TrainState as JTrainState
+    from repro.optim import adafactor as jadafactor
+    from repro_torch.checkpointing import restore_checkpoint
+
+    base = FaultPlan(seed=5, crash_rate=0.1)
+    kill = dataclasses.replace(base, server_kill_rounds=(3,))
+    tr_a = _chaos_trainer(base, optimizer=adafactor(0.01))
+    st_a, hist_a = run_with_recovery(tr_a, 5, 0, str(tmp_path / "a"),
+                                     checkpoint_every=2)
+    tr_b = _chaos_trainer(kill, optimizer=adafactor(0.01))
+    st_b, hist_b = run_with_recovery(tr_b, 5, 0, str(tmp_path / "b"),
+                                     checkpoint_every=2)
+    assert hist_a == hist_b
+    _assert_states_equal(st_a, st_b)
+    assert tr_a.last_trace.records == tr_b.last_trace.records
+    tree = restore_checkpoint(str(tmp_path / "b"), 4, device=CPU)["train"]
+    ours = [tree[k] for k in sorted(tree)]
+    ref = jax.tree.leaves(JTrainState.create(
+        JFemnistCNN(pq=None).init(jax.random.PRNGKey(0)),
+        jadafactor(0.01)))
+    assert [(tuple(a.shape), str(a.dtype).split(".")[-1]) for a in ours] \
+        == [(b.shape, str(b.dtype)) for b in ref]
 
 
 # ---------------------------------------------------------------------------
