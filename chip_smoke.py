@@ -73,6 +73,20 @@ Phases (each prints its own lines; any failure exits non-zero):
                 the per-client cut state and scalar_quantize, with exact
                 launch counts and the same trace from both scheduler
                 backends;
+  7b'. mesh  -- the cohort-parallel executor (executor="mesh", one
+                process per shard, one all-reduce per update) on the same
+                FEMNIST run from the same weights as the stacked executor:
+                a world of one (NCCL) for --steps FullSync rounds (exact
+                lloyd_update / pq_quantize launch counts: the stacked
+                path's 5 + 1 a round) and --steps AsyncBuffer(4) flushes
+                with the chain downlink (the 'client' scope); then two
+                gloo ranks spawned on the one card (NCCL refuses two ranks
+                on one device) for the FullSync run and a DropSlowestK(1)
+                round (9 clients in 10 slots); each held to the stacked
+                run (losses rtol 5e-4, params rtol 5e-3 / atol 5e-5, the
+                reference's stacked-vs-mesh bounds; participants and
+                bytes equal), the ranks bitwise equal; round medians of
+                the stacked path, the mesh at one rank and at two;
   7c. so     -- the paper's two text tasks (benchmarks/bench_so_tasks.py)
                 through FederatedTrainer at full width, 3 rounds a run:
                 SO Tag (SOTagMLP, bag of words 5000 -> cut 2000 -> 1000
@@ -164,7 +178,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 at the largest of its SO shapes; lloyd_update and
                 pq_quantize at the three LM runs' cuts; the three
                 clustering kernels above 64 dims (--q 96, D = 128 and Fig.
-                3's (20, 9216) at L = 64).
+                3's (20, 9216) at L = 64); lloyd_update and pq_quantize
+                at a mesh shard's fused clients (5, 23040, 8).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -311,6 +326,22 @@ TRAIN_DIST_RTOL = 1e-4
 # code; one such flip moves one example's loss, the batch mean by up to
 # ~1e-4 (7.7e-5 seen on an H100), so the bound is 10x that
 WARM_LOSS_ATOL = 1e-3
+
+# the mesh phase: the reference's stacked-vs-mesh bounds
+# (tests/test_executor.py:154-158) and how long two spawned ranks may take
+MESH_LOSS_RTOL = 5e-4
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 5e-5
+MESH_JOIN_S = 600
+# the mesh's ranks on one card, and the clients one of them fuses. Two
+# ranks sum the weight gradients in another order than the stacked step;
+# on an H100 that stayed at 1e-7 for 3 rounds, then a near-tie PQ code
+# flipped (round 4) and the params parted by 9.1e-5 by round 10, past
+# MESH_PARAM_ATOL (on server.dense1_b, entries below 2e-3). So the ranks'
+# params are held after MESH_PARAM_ROUNDS, the horizon of the reference's
+# own stacked-vs-mesh test, and their losses over the whole run
+MESH_PARAM_ROUNDS = 2
+MESH_RANKS = 2
+MESH_SHARD = CLIENTS // MESH_RANKS
 
 # crash recovery: the femnist example's --chaos --warm-start run (9
 # rounds, a snapshot every 3, killed at round 7 as tests/test_faults.py
@@ -1811,6 +1842,243 @@ def phase_trainer(seed, rounds, dev="cuda"):
                 begin()
         trainer.run(4, seed, on_round=on_round)
     return counts, weighted_counts, steady_rounds
+
+
+def synced(dev):
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed_run(trainer, rounds, seed, dev, sync=True):
+    """``trainer.run(rounds, seed)`` with each round's end on the host
+    clock (synchronous policies: ``on_round``); returns (state, history,
+    round times in ms)."""
+    marks = []
+
+    def on_round(rd, cursor):
+        synced(dev)
+        marks.append(time.perf_counter())
+    synced(dev)
+    t0 = time.perf_counter()
+    state, hist = trainer.run(rounds, seed, on_round=on_round if sync
+                              else None)
+    synced(dev)
+    return state, hist, np.diff([t0] + marks) * 1e3
+
+
+def mesh_result(trainer, state, hist, ms):
+    """What a mesh run is held on, as host values."""
+    trace = trainer.last_trace
+    return {"loss": [h["loss"] for h in hist],
+            "params": {k: v.detach().cpu() for k, v in state.params.items()},
+            "participants": [r.participants for r in trace],
+            "bytes": [(r.uplink_bytes, r.downlink_bytes) for r in trace],
+            "shards": [r.shards for r in trace],
+            "round_ms": list(ms)}
+
+
+def mesh_hold(tag, mesh, stacked, params=True):
+    """A mesh run against the stacked run from the same weights: per-round
+    losses within MESH_LOSS_RTOL, final params (unless ``params`` is
+    False: then printed only) within MESH_PARAM_RTOL / MESH_PARAM_ATOL
+    (the reference's stacked-vs-mesh bounds), the trace's participants and
+    bytes equal. Returns the largest relative loss gap."""
+    la, lb = np.asarray(mesh["loss"]), np.asarray(stacked["loss"])
+    gap = float(np.max(np.abs(la - lb) / np.abs(lb))) if len(lb) else 0.0
+    worst = max(float((a - stacked["params"][k]).abs().max())
+                for k, a in mesh["params"].items())
+    close = all(torch.allclose(a, stacked["params"][k], rtol=MESH_PARAM_RTOL,
+                               atol=MESH_PARAM_ATOL)
+                for k, a in mesh["params"].items())
+    say("mesh", f"{tag} vs stacked: {len(la)} rounds, max relative loss gap "
+        f"{gap:.3e} (bound {MESH_LOSS_RTOL}); max |Δparam| {worst:.3e} "
+        f"({'held' if params else 'not held'}, within the bounds: "
+        f"{close}); participants and bytes equal: "
+        f"{mesh['participants'] == stacked['participants'] and mesh['bytes'] == stacked['bytes']}")
+    if len(la) != len(lb) or not gap <= MESH_LOSS_RTOL \
+            or not np.all(np.isfinite(la)):
+        fail(f"{tag}: losses {la.tolist()} vs stacked {lb.tolist()}")
+    if params and not close:
+        fail(f"{tag}: params off from the stacked run's by {worst}")
+    if mesh["participants"] != stacked["participants"] \
+            or mesh["bytes"] != stacked["bytes"]:
+        fail(f"{tag}: the trace's participants or bytes differ")
+    return gap
+
+
+def mesh_rank(rank, world, store, weights, seed, rounds, dev, out):
+    """One of phase_mesh's gloo ranks (a spawned process): the FullSync
+    run, its first MESH_PARAM_ROUNDS rounds and one DropSlowestK(1) round
+    on a ``world``-shard mesh, each on ``dev`` from ``weights``; the
+    results saved to ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.federated import DropSlowestK
+    from repro_torch.federated.executor import MeshExecutor
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(0)
+    # full f32, as the parent's phases run (a fresh process allows TF32
+    # convolutions)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        res = {}
+        for name, kw, n in (("sync", {}, rounds),
+                            ("held", {}, MESH_PARAM_ROUNDS),
+                            ("drop", {"policy": DropSlowestK(1)}, 1)):
+            tr = make_trainer(dev, torch.Generator().manual_seed(seed),
+                              state=weights, executor=MeshExecutor(
+                                  shards=world, backend="gloo"), **kw)
+            res[name] = mesh_result(tr, *timed_run(tr, n, seed, dev))
+            res[name]["rank"] = tr.executor.rank
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out)
+
+
+def phase_mesh(seed, rounds, dev="cuda"):
+    """The cohort-parallel executor (``executor="mesh"``) on the FEMNIST
+    run at full width, against the stacked executor from the same
+    weights: a world of one (NCCL) under FullSync with exact launch
+    counts, and under AsyncBuffer(4) with the chain downlink; then two
+    gloo ranks spawned on the one card (FullSync, and a DropSlowestK(1)
+    round whose 9 clients pad one slot), rank 0 held to the stacked runs
+    and the ranks bitwise equal; the round medians of the three. Returns
+    the world of one's FullSync launches under "<kernel>/mesh" and the
+    kernels' errors at a shard's shape (MESH_SHARD clients fused)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.federated import AsyncBuffer, DropSlowestK, mobile_fleet
+    from repro_torch.kernels import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((MESH_SHARD, M, DSUB), generator=gen).to(dev)
+    c = torch.randn((MESH_SHARD, L, DSUB), generator=gen).to(dev)
+    errs = {"lloyd_update/mesh": check_lloyd(
+                "mesh shard", x, c, None,
+                torch.ones((MESH_SHARD, M), device=dev))[0],
+            "pq_quantize/mesh": check_pq("mesh shard", x, c)[0]}
+    weights = {k: v.detach().cpu().clone() for k, v in make_trainer(
+        dev, torch.Generator().manual_seed(seed)).model.state_dict().items()}
+
+    def build(**kw):
+        return make_trainer(dev, torch.Generator().manual_seed(seed),
+                            state=weights, **kw)
+
+    st = build()
+    stacked = mesh_result(st, *timed_run(st, rounds, seed, dev))
+    mesh1 = build(executor="mesh")
+    synced(dev)
+    _build.reset_launch_counts()
+    one = mesh_result(mesh1, *timed_run(mesh1, rounds, seed, dev))
+    counts = _build.launch_counts()
+    want = {"lloyd_update": ITERS * (rounds + 1), "pq_quantize": rounds + 1}
+    backend = dist.get_backend()
+    say("mesh", f"world of one ({backend}, "
+        f"{mesh1.executor.num_shards} shard): launches in run({rounds}) "
+        f"{counts} (want {want}: the stacked path's, the shard's clients "
+        f"fused into one batch, and the wire measurement's compress)")
+    if counts != want:
+        fail(f"mesh launch counts {counts} != {want}")
+    mesh_hold("mesh (world of one, FullSync)", one, stacked)
+
+    weighted = dict(fleet=mobile_fleet(64, flaky_fraction=0.3, seed=0),
+                    policy=AsyncBuffer(4), downlink_compressor=DOWNLINK,
+                    warm_start=True)
+    w_st = build(**weighted)
+    w_stacked = mesh_result(w_st, *timed_run(w_st, rounds, seed, dev,
+                                             sync=False))
+    w_me = build(executor="mesh", **weighted)
+    synced(dev)
+    _build.reset_launch_counts()
+    w_mesh = mesh_result(w_me, *timed_run(w_me, rounds, seed, dev,
+                                          sync=False))
+    w_counts, w_want = _build.launch_counts(), \
+        trainer_counts_want(w_me.last_trace)
+    say("mesh", f"world of one, AsyncBuffer(4) ('client' scope), downlink "
+        f"{w_me.downlink.spec}, warm start: launches {w_counts} (want "
+        f"{w_want})")
+    if w_counts != w_want:
+        fail(f"mesh weighted launch counts {w_counts} != {w_want}")
+    mesh_hold("mesh (world of one, AsyncBuffer(4))", w_mesh, w_stacked)
+    dist.destroy_process_group()
+
+    drop = build(policy=DropSlowestK(1))
+    drop_stacked = mesh_result(drop, *timed_run(drop, 1, seed, dev))
+    st2 = build()
+    held_stacked = mesh_result(st2, *timed_run(st2, MESH_PARAM_ROUNDS, seed,
+                                               dev))
+    world = MESH_RANKS
+    say("mesh", f"{world} ranks on one card: gloo, asked for explicitly "
+        f"(NCCL refuses two ranks on one device); the kernels were built "
+        f"before the spawn")
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=mesh_rank, args=(
+            r, world, os.path.join(tmp, "store"), weights, seed, rounds, dev,
+            os.path.join(tmp, f"rank{r}.pt"))) for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=MESH_JOIN_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"mesh ranks exited {codes} (a rank failed or hung past "
+                 f"{MESH_JOIN_S} s)")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    say("mesh", f"{world} ranks spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, ref, what in (
+            ("sync", stacked, "FullSync"),
+            ("held", held_stacked, f"FullSync, run({MESH_PARAM_ROUNDS})"),
+            ("drop", drop_stacked, "DropSlowestK(1)")):
+        first = ranks[0][name]
+        # past a few rounds a near-tie PQ code flips between the two runs
+        # (their weight gradients sum in other orders), and the runs then
+        # part by more than the params' bounds: the long run's losses are
+        # held, its params printed
+        mesh_hold(f"mesh ({world} gloo ranks, {what})", first, ref,
+                  params=name != "sync")
+        for r, res in enumerate(rank[name] for rank in ranks):
+            same = res["rank"] == r and res["loss"] == first["loss"] and all(
+                torch.equal(v, first["params"][k])
+                for k, v in res["params"].items())
+            if not same:
+                fail(f"mesh {name}: rank {r} differs from rank 0")
+        spans = {s for rec in first["shards"] for s in rec}
+        if spans != set(range(world)):
+            fail(f"mesh {name}: shards {first['shards']}")
+    drop_n = len(ranks[0]["drop"]["participants"][0])
+    say("mesh", f"ranks bitwise equal (params, losses); shards "
+        f"{sorted(spans)}; DropSlowestK(1) ran {drop_n} of {CLIENTS} "
+        f"clients in {-(-drop_n // world) * world} slots")
+
+    def med(ms):
+        return statistics.median(ms[1:])
+    say("times", f"mesh round medians over rounds 2..{rounds} (host clock + "
+        f"synchronize): stacked {med(stacked['round_ms']):.3f} ms, mesh at "
+        f"a world of one ({backend}) {med(one['round_ms']):.3f} ms, mesh at "
+        f"{world} gloo ranks on one card (rank 0) "
+        f"{med(ranks[0]['sync']['round_ms']):.3f} ms: the last measures "
+        f"gloo's staging through the host, not scaling")
+    return {f"{k}/mesh": v for k, v in counts.items()}, errs
 
 
 @contextlib.contextmanager
@@ -3975,6 +4243,46 @@ def time_anyd(gen, counts, errs):
                                             "kmeans_assign")]
 
 
+def time_mesh(gen, counts, errs, dev="cuda"):
+    """lloyd_update and pq_quantize at a shard's shape (MESH_SHARD, M,
+    DSUB): one rank's fused clients at two ranks, L2-warm, beside their
+    plain versions and bounds: the kernels line's "<kernel>/mesh" entries,
+    with the launches of the mesh's FullSync run at a world of one."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lloyd_update import lloyd_update_kernel
+    from repro_torch.kernels.pq_quantize import pq_quantize_kernel
+
+    x = torch.randn((MESH_SHARD, M, DSUB), generator=gen).to(dev)
+    c = torch.randn((MESH_SHARD, L, DSUB), generator=gen).to(dev)
+    entries = []
+    for name, src, replaces, kern, plain, work in (
+            ("lloyd_update", "lloyd_update.cu",
+             "src/repro/kernels/lloyd_update.py:87",
+             lambda: lloyd_update_kernel(x, None, c),
+             lambda: ref.lloyd_update_ref(x, None, c), lloyd_work(x, L)),
+            ("pq_quantize", "pq_quantize.cu",
+             "src/repro/kernels/pq_quantize.py:55",
+             lambda: pq_quantize_kernel(x, c),
+             lambda: ref.pq_quantize_ref(x, c), pq_work(x, L))):
+        key = f"{name}/mesh"
+        k_ms = device_ms(kern)
+        p_ms = device_ms(plain)
+        b_ms, b_by = bound(*work)
+        say("times", f"{name} at a mesh shard's shape x "
+            f"{tuple(x.shape)} L={L}: kernel {k_ms * 1e3:.2f} us (device, "
+            f"CUDA graph, L2-warm); plain {p_ms * 1e3:.2f} us; bound "
+            f"{b_ms * 1e3:.2f} us by {b_by}; {counts.get(key, 0)} launches "
+            f"in the mesh's run")
+        entries.append({"name": key, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": replaces,
+                        "launches": counts.get(key, 0),
+                        "max_abs_err": errs[key], "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+    return entries
+
+
 def run_example(module, argv):
     """``module.main(argv)`` on the card: its lines printed under
     [examples] and returned, with the launch counts read around it."""
@@ -4187,6 +4495,11 @@ def main(argv=None) -> int:
     counts.update(main_counts)
     counts["scalar_quantize"] = weighted_counts["scalar_quantize"]
     torch.cuda.empty_cache()
+    # the cohort-parallel executor: its FullSync launches at a world of one
+    # are the "<kernel>/mesh" entries
+    mesh_counts, mesh_errs = phase_mesh(args.seed, args.steps)
+    errs.update(mesh_errs)
+    torch.cuda.empty_cache()
     # the text tasks: the clustering kernels' launches on the SO runs, by
     # route
     so_counts, lm_data = phase_so_tasks(args.seed)
@@ -4222,6 +4535,7 @@ def main(argv=None) -> int:
     kernels += time_large_l(gen, so_counts, errs)
     kernels += time_lm_pq(gen, lm_counts, lm_errs)
     kernels += time_anyd(gen, anyd_counts, errs)
+    kernels += time_mesh(gen, mesh_counts, errs)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

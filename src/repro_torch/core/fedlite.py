@@ -24,7 +24,9 @@ threads the codebook warm start and error-feedback memory from step to
 step.
 
 ``make_weighted_step`` is the per-contribution staleness-weighted update
-(FedBuff) that the trainer's ``AsyncBuffer`` flushes run; ``comm_report``
+(FedBuff) that the trainer's ``AsyncBuffer`` flushes run;
+``make_mesh_step`` the cohort-parallel update of the ``"mesh"`` executor,
+one process per shard and one all-reduce per update; ``comm_report``
 is the paper's per-client wire-bit accounting. ``make_eval_step`` is the
 LM's CE and masked accuracy of the uncompressed forward.
 """
@@ -111,11 +113,14 @@ def _deterministic_cudnn():
         torch.backends.cudnn.deterministic = saved
 
 
-def _grads(model, params: Dict[str, Any], batch,
-           kw: Dict[str, Any]) -> Tuple[torch.Tensor, Dict, Tensors]:
+def _grads(model, params: Dict[str, Any], batch, kw: Dict[str, Any],
+           scale: Optional[float] = None
+           ) -> Tuple[torch.Tensor, Dict, Tensors]:
     """One forward pass of ``model`` driven from ``params`` with the
     keywords ``kw``: (detached loss, the model's metrics, d loss / d
-    params as a flat dict), each operation deterministic on the card."""
+    params as a flat dict), each operation deterministic on the card.
+    ``scale`` differentiates ``scale · loss`` instead: the cotangent that
+    reaches the cut is scaled, the eq.-5 correction added there is not."""
     flat = flat_params(params)
     with _deterministic_cudnn():
         if isinstance(model, nn.Module):
@@ -125,8 +130,9 @@ def _grads(model, params: Dict[str, Any], batch,
             loss, metrics = model.loss(params, batch, **kw)
         # a parameter the loss does not reach (the unused ln2 of an SSM
         # block without an FFN) gets zeros, as under jax.grad
-        grads = torch.autograd.grad(loss, list(flat.values()),
-                                    allow_unused=True, materialize_grads=True)
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    list(flat.values()), allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), metrics, dict(zip(flat, grads))
 
 
@@ -203,14 +209,28 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, *,
     return train_step
 
 
-def _client_cut(cut_state, c: int):
-    """Client ``c``'s slice of a client-major ``CutState``, in the layout
-    the model takes for one client: codebooks (1, R, L, d/q), EF (B, d)."""
+def _client_cut(cut_state, c: int, stop: Optional[int] = None):
+    """Clients ``c`` to ``stop`` (default: client ``c`` alone) of a
+    client-major ``CutState``, in the layout the model takes for their
+    concatenated batch: codebooks (n, R, L, d/q), EF rows (n·B, d)."""
+    stop = c + 1 if stop is None else stop
     q, ef = cut_state.quantizer, cut_state.ef_memory
     if q is not None:
-        q = type(q)(*(x[c:c + 1] for x in q))
-    return type(cut_state)(quantizer=q,
-                           ef_memory=None if ef is None else ef[c])
+        q = type(q)(*(x[c:stop] for x in q))
+    if ef is not None:
+        ef = ef[c] if stop == c + 1 else ef[c:stop].flatten(0, 1)
+    return type(cut_state)(quantizer=q, ef_memory=ef)
+
+
+def _split_cut(cut, n: int) -> list:
+    """The model's ``CutState`` of n clients' concatenated batch as n
+    per-client states (``_client_cut``'s layout for one client)."""
+    q, ef = cut.quantizer, cut.ef_memory
+    if ef is not None:
+        ef = ef.reshape(n, -1, *ef.shape[1:])
+    return [type(cut)(
+        quantizer=None if q is None else type(q)(*(x[i:i + 1] for x in q)),
+        ef_memory=None if ef is None else ef[i]) for i in range(n)]
 
 
 def _stack_cuts(cuts):
@@ -284,6 +304,212 @@ def make_weighted_step(model: nn.Module, optimizer: Optimizer, *,
         return _apply(optimizer, state, grads), out
 
     return weighted_step
+
+
+def _cut_leaves(cut) -> list:
+    """A ``CutState``'s tensors, in a fixed order (absent fields skipped)."""
+    q = [] if cut.quantizer is None else list(cut.quantizer)
+    return q + ([] if cut.ef_memory is None else [cut.ef_memory])
+
+
+def _cut_like(template, leaves):
+    """``leaves`` (in ``_cut_leaves`` order) in ``template``'s layout."""
+    it = iter(leaves)
+    q = None if template.quantizer is None else type(template.quantizer)(
+        *(next(it) for _ in template.quantizer))
+    ef = None if template.ef_memory is None else next(it)
+    return type(template)(quantizer=q, ef_memory=ef)
+
+
+def _gather_cuts(cuts, slots: int, mesh, group):
+    """Every slot's ``CutState`` on every rank, from each block's owner.
+
+    Each rank packs its block's states as raw bytes and broadcasts them
+    once: a gather that keeps every bit (a sum of zero-filled slices would
+    turn -0.0 into +0.0) and that gloo supports on CUDA tensors too."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.ctx import clients_rank, local_slots
+
+    template = cuts[0]
+    shapes = [(t.shape, t.dtype, t.numel() * t.element_size())
+              for t in _cut_leaves(template)]
+    mine = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for cut in cuts for t in _cut_leaves(cut)])
+    shards = slots // len(cuts)
+    rank = clients_rank(mesh)
+    out = []
+    for r in range(shards):
+        buf = mine if r == rank else torch.empty_like(mine)
+        dist.broadcast(buf, src=dist.get_global_rank(group, r), group=group)
+        off = 0
+        for _ in local_slots(slots, mesh, r):
+            leaves = []
+            for shape, dtype, nb in shapes:
+                leaves.append(buf[off:off + nb].clone().view(dtype)
+                              .view(shape))
+                off += nb
+            out.append(_cut_like(template, leaves))
+    return _stack_cuts(out)
+
+
+def make_mesh_step(model: nn.Module, optimizer: Optimizer, mesh, *,
+                   quantize: bool = True, step_key: Optional[int] = None,
+                   correction_scope: str = "cohort") -> Callable:
+    """Cohort-parallel server update over ``mesh``'s ``clients`` axis
+    (twin of the reference's ``make_mesh_step``).
+
+    SPMD: every rank of the mesh calls the step with the same arguments
+    and holds the same replicated ``state``. Inputs are client-major:
+    ``batches`` one batch dict per client slot, ``weights`` and ``mask``
+    one float per slot (host values), ``cut_state`` per client (codebooks
+    (C, R, L, d/q), EF memory (C, B, d)). Rank r computes the slots of its
+    contiguous block (``sharding.ctx.local_slots``). The f32 weighted
+    gradient sum, the masked metric sums beside it, crosses ranks once, as
+    one ``all_reduce(SUM)`` of one flat buffer on the ``clients`` group;
+    every rank then applies the same optimizer update. Within a rank the
+    sums run in a fixed order; across ranks in the backend's order
+    (reassociation only).
+
+    ``correction_scope``, as in the reference:
+
+      * ``"cohort"`` (the synchronous policies) -- client c's loss is
+        scaled by ``w_c / Σm`` inside differentiation, so the cotangent at
+        the cut carries the cohort's 1/(C·B) while the eq.-5 correction
+        fires at full λ: the fused stacked step's gradient. A shard whose
+        real clients share one weight runs them as ``make_train_step``
+        does, as one concatenated batch with its mean loss scaled by
+        ``n_local·w / Σm``, when the model clusters per client
+        (``model.client_batch``) or does not quantize: each client keeps
+        its own codebook, and a world of one computes exactly the stacked
+        step, kernel launches included (5 ``lloyd_update`` and 1
+        ``pq_quantize`` a FEMNIST round). Otherwise (a cohort-global
+        codebook, unequal weights) the shard's clients run one by one.
+        A fused shard's float metrics (``pq_compression_ratio``) are those
+        of its batch, as on the stacked path, and its codecs draw from
+        ``step_generator(step_key, step, device)`` at a world of one, the
+        stacked step's, else from the stream of ``client`` = its rank.
+      * ``"client"`` (``AsyncBuffer``) -- raw per-client gradients, one
+        client after the other, discounted by ``w_c / Σm`` after
+        differentiation: ``make_weighted_step``'s update, and its
+        generator ``step_generator(step_key, step, device, c)`` for slot c.
+
+    ``mask`` (0/1 per slot) marks real clients: a cohort rarely divides
+    the shard count, so callers pad to a multiple of it. A slot with
+    ``m = 0`` adds nothing to the gradient, the metric means (``Σ x·m /
+    max(Σm, 1)``) or ``mean_staleness_weight``; it is not run at all,
+    except that a rank whose block holds no real client runs its first
+    slot to learn the metrics' and cut state's layout and adds zeros, so
+    that every rank joins the all-reduce with a buffer of one shape.
+
+    With a ``cut_state``, the new per-client states come back under
+    ``metrics["cut_state"]`` for every slot, on every rank, bitwise as
+    their owner computed them (a padded slot holds a copy of its rank's
+    last computed state); the trainer's per-client memories stay
+    identical across ranks.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.sharding.ctx import (CLIENTS_AXIS, clients_rank,
+                                          local_slots)
+
+    if CLIENTS_AXIS not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no "
+                         f"{CLIENTS_AXIS!r} axis")
+    if correction_scope not in ("cohort", "client"):
+        raise ValueError(f"correction_scope={correction_scope!r} must be "
+                         "'cohort' or 'client'")
+    pre_scale = correction_scope == "cohort"
+    per_client_codebooks = not quantize \
+        or getattr(model, "pq", None) is None \
+        or getattr(model, "client_batch", 0) > 0
+    group = mesh.get_group(CLIENTS_AXIS)
+    shards = mesh.size(mesh.mesh_dim_names.index(CLIENTS_AXIS))
+    rank = clients_rank(mesh)
+    f32 = np.float32
+
+    def mesh_step(state: TrainState, batches, weights, mask,
+                  cut_state=None) -> Tuple[TrainState, Dict]:
+        parts = list(batches)
+        slots = len(parts)
+        device = next(iter(parts[0].values())).device
+        w = np.asarray(weights, f32)
+        m = np.asarray(mask, f32)
+        if w.shape != (slots,) or m.shape != (slots,):
+            raise ValueError(f"{slots} slots, weights {w.shape}, mask "
+                             f"{m.shape}")
+        cnt = max(m.sum(dtype=f32), f32(1.0))
+        scale = w / cnt
+        block = local_slots(slots, mesh)
+        real = [c for c in block if m[c] != 0]
+        # work units: (first slot, end slot, loss scale, gradient weight,
+        # metric weight, generator's client); a fused unit is the block's
+        # run of real slots, its batch mean counting for its n clients in
+        # the metrics' Σ x·m
+        if not real:
+            units = [(block[0], block[0] + 1, None, 0.0, 0.0, block[0])]
+        elif pre_scale and per_client_codebooks \
+                and real == list(range(real[0], real[0] + len(real))) \
+                and len({(w[c], m[c]) for c in real}) == 1:
+            n, c = len(real), real[0]
+            units = [(c, c + n, float(f32(n) * w[c] / cnt), float(m[c]),
+                      float(f32(n) * m[c]), None if shards == 1 else rank)]
+        else:
+            units = [(c, c + 1, float(scale[c]) if pre_scale else None,
+                      float(m[c] if pre_scale else m[c] * scale[c]),
+                      float(m[c]), c) for c in real]
+        flat = flat_params(state.params)
+        ghat = {k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in flat.items()}
+        sums: Dict[str, torch.Tensor] = {}
+        cuts = []
+        for first, end, loss_scale, coef, mcoef, client in units:
+            batch = parts[first] if end == first + 1 else {
+                k: torch.cat([parts[c][k] for c in range(first, end)])
+                for k in parts[first]}
+            kw = {"quantize": quantize}
+            if step_key is not None:
+                kw["key"] = step_generator(step_key, state.step, device,
+                                           client)
+            if cut_state is not None:
+                kw["cut_state"] = _client_cut(cut_state, first, end)
+            loss, met, grads = _grads(model, state.params, batch, kw,
+                                      loss_scale)
+            met = dict(met, loss=loss)
+            if "cut_state" in met:
+                cuts += _split_cut(met.pop("cut_state"), end - first)
+            # a float metric joins on the device without a host copy
+            for k, v in met.items():
+                if k not in sums:
+                    sums[k] = torch.zeros((), dtype=torch.float32,
+                                          device=device)
+                if mcoef:
+                    sums[k] = sums[k] + mcoef * (
+                        v.float() if torch.is_tensor(v)
+                        else torch.full((), float(v), dtype=torch.float32,
+                                        device=device))
+            if coef:
+                for k, g in grads.items():
+                    ghat[k] += coef * g.float()
+        keys = sorted(sums)
+        buf = torch.cat([g.reshape(-1) for g in ghat.values()]
+                        + [torch.stack([sums[k] for k in keys])])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        grads, off = {}, 0
+        for k, p in flat.items():
+            grads[k] = buf[off:off + p.numel()].view(p.shape).to(p.dtype)
+            off += p.numel()
+        out = {k: buf[off + i] / float(cnt) for i, k in enumerate(keys)}
+        out["mean_staleness_weight"] = float((w * m).sum(dtype=f32) / cnt)
+        if cuts:
+            ran = [c for first, end, *_ in units for c in range(first, end)]
+            by_slot = dict(zip(ran, cuts))
+            out["cut_state"] = _gather_cuts(
+                [by_slot.get(c, cuts[-1]) for c in block], slots, mesh,
+                group)
+        return _apply(optimizer, state, grads), out
+
+    return mesh_step
 
 
 def make_eval_step(model) -> Callable:

@@ -19,8 +19,13 @@ autoscaler, re-planning every 8 rounds), ``--chaos`` (DEFAULT_CHAOS fault
 injection), ``--emit-trace [PATH]`` / ``--perfetto PATH`` (the
 ``repro_torch.obs`` event log, read by ``python -m repro_torch.obs PATH``)
 and ``--ckpt PATH`` (the final params in the reference's checkpoint
-format). ``--executor mesh`` raises: the mesh executor is not ported yet
-(ROADMAP A13).
+format). ``--executor mesh`` runs the cohort-parallel executor: as a
+world of one when launched plainly, or across ranks under ``torchrun``
+(one process per device; rank 0 alone prints and writes files)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+        repro_torch.examples.femnist_federated_training --executor mesh \\
+        --device cpu
 
 Seeds, not keys. Where the reference takes ``jax.random.PRNGKey(k)``, the
 twin takes the int k:
@@ -41,10 +46,14 @@ character; losses and accuracies are the same quantities on other draws.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpointing import save_checkpoint
@@ -55,6 +64,7 @@ from repro_torch.federated import (DEFAULT_CHAOS, AsyncBuffer, AutoscalePlan,
                                    Deadline, DropSlowestK, FederatedTrainer,
                                    FullSync, TraceAutoscaler, autoscale_run,
                                    lognormal_fleet, make_policy, mobile_fleet)
+from repro_torch.launch.mesh import mesh_backend
 from repro_torch.models.paper_models import FemnistCNN, to_jax_params
 from repro_torch.optim import sgd
 
@@ -98,8 +108,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--executor", choices=["stacked", "mesh"],
                     default="stacked",
                     help="cohort execution engine: the stacked one-device "
-                         "path; mesh is not ported yet (ROADMAP A13) and "
-                         "raises")
+                         "path, or mesh (cohort-parallel over the ranks "
+                         "torchrun launched; a world of one without it)")
     ap.add_argument("--autoscale", action="store_true",
                     help="drive the run with the trace-driven autoscaler "
                          "(re-plans cohort/policy/downlink every 8 rounds)")
@@ -164,7 +174,29 @@ def main(argv=None) -> int:
             and not torch.cuda.is_available():
         raise SystemExit("femnist_federated_training: no CUDA device (use "
                          "--device cpu)")
-    if args.emit_trace:
+    launched = args.executor == "mesh" and "WORLD_SIZE" in os.environ \
+        and not dist.is_initialized()
+    if launched:
+        # under torchrun: one rank per device, the rendezvous from the
+        # environment
+        dev = torch.device(args.device)
+        if dev.type == "cuda" and dev.index is None:
+            args.device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+        dist.init_process_group(mesh_backend(args.device))
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _run(args, writes=False)
+        return _run(args, writes=True)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, writes: bool) -> int:
+    """The example's run; ``writes`` (rank 0, or the only process) opens
+    the obs recorder and writes the checkpoint and the trace files."""
+    if args.emit_trace and writes:
         obs.configure(run="femnist_example", meta={
             "rounds": args.rounds, "fleet": args.fleet,
             "policy": args.policy, "executor": args.executor,
@@ -250,7 +282,7 @@ def main(argv=None) -> int:
                 print(f"round {r:4d}  loss={float(metrics['loss']):.4f}  "
                       f"acc={acc:.3f}  uplink={mb:8.1f} MB  "
                       f"({time.time() - t0:.0f}s)")
-    if args.ckpt:
+    if args.ckpt and writes:
         save_checkpoint(args.ckpt, args.rounds, to_jax_params(state.params))
         print(f"saved params to {args.ckpt}")
     if pq:

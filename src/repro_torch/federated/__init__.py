@@ -8,8 +8,9 @@ package measures it, in both directions, with the real wire format.
                   aggregation, and `FederatedTrainer`, which runs SplitFed /
                   FedLite rounds through the scheduler and measures both
                   directions' payloads through the wire codec.
-  executor.py   — the cohort execution engine (``"stacked"``; ``"mesh"``
-                  is registered and raises until ROADMAP A13).
+  executor.py   — the cohort execution engine: ``"stacked"`` (one
+                  device) and ``"mesh"`` (cohort-parallel over a
+                  ``clients`` DeviceMesh, one process per shard).
   wire.py       — the versioned tagged wire codec, byte for byte the
                   reference's frames (v1–v4, CRC32 trailer, typed errors).
   network.py    — `ClientProfile`, the struct-of-arrays `ClientFleet` and

@@ -12,10 +12,29 @@ forward/backward work is mapped onto devices. `FederatedTrainer` routes
     the cohort's client batches into one fused batch for
     ``make_train_step``; `AsyncBuffer` flushes go through
     ``make_weighted_step``'s per-contribution staleness weighting.
-  * ``mesh``    — cohort-parallel execution over a ``clients`` device axis.
-    It stays registered, so a spec naming it fails loudly: the port's mesh
-    (DeviceMesh / DTensor, one all-reduce of the weighted gradient) is
-    ROADMAP A13.
+  * ``mesh``    — cohort-parallel execution over the ``clients`` axis of a
+    1-D ``DeviceMesh`` (``launch/mesh.make_clients_mesh``), in PyTorch's
+    multi-process idiom: one process per shard (``torchrun`` or
+    ``torch.multiprocessing.spawn``; a plain process is a world of one),
+    each holding the same trainer and replicated parameters. The
+    scheduler's numpy streams give every rank the same cohort and
+    placement; each rank computes the clients of its contiguous block,
+    and the weighted gradient sum crosses ranks once per server update,
+    as one ``all_reduce`` (``core/fedlite.make_mesh_step``). Cohorts that
+    do not divide the shard count are padded with zero-masked slots.
+
+Every scheduler policy executes unchanged on either backend: policies see
+cohorts and arrival times, never devices. The executor also assigns each
+participant its shard (``place``), which the traces record.
+
+Semantics: the mesh backend reproduces the stacked backend's round metrics
+and gradients (allclose; float reassociation only) whenever the model
+quantizes per client (``model.client_batch == trainer.client_batch``) or
+runs unquantized. A cohort-global codebook (``model.client_batch == 0``
+with PQ on) is not shard-local: the mesh then clusters per client, and
+logs a warning. The λ-correction's scale in the fused synchronous step
+and in per-client gradients is reconciled by ``make_mesh_step``'s
+``correction_scope``.
 
 New backends register through ``register_executor`` without touching the
 trainer.
@@ -24,14 +43,20 @@ trainer.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
-from repro_torch.core.fedlite import (TrainState, make_train_step,
-                                      make_weighted_step)
+from repro_torch.core.fedlite import (TrainState, make_mesh_step,
+                                      make_train_step, make_weighted_step)
+from repro_torch.sharding.ctx import CLIENTS_AXIS, clients_rank
+
+logger = logging.getLogger(__name__)
 
 
 class CohortExecutor:
@@ -48,6 +73,10 @@ class CohortExecutor:
 
     def bind(self, trainer) -> None:
         raise NotImplementedError
+
+    def barrier(self) -> None:
+        """Wait for every rank of the executor's mesh (one process: no
+        wait)."""
 
     def _claim(self, trainer) -> None:
         """Attach to ``trainer``, refusing silent re-targeting: one executor
@@ -147,18 +176,119 @@ class StackedExecutor(CohortExecutor):
 
 @dataclasses.dataclass
 class MeshExecutor(CohortExecutor):
-    """Cohort-parallel execution over a ``clients`` device axis: not
-    ported yet. Registered so that ``executor="mesh"`` names what is
-    missing instead of reading as an unknown spec."""
+    """Cohort-parallel execution over the ``clients`` axis of a
+    ``DeviceMesh``, one process per shard.
+
+    ``shards=0`` takes the world size of the initialised process group (a
+    world of one when none is); pass ``shards=n``, ``backend`` (default:
+    the trainer's device's, NCCL on the card, gloo on the CPU) or an
+    explicit ``mesh`` (any ``DeviceMesh`` with a ``clients`` axis). Every
+    rank builds the same trainer and runs the same ``run``: the
+    scheduler's numpy streams give every rank the same cohorts, arrivals
+    and placement, and each rank computes its block of slots.
+    """
     shards: int = 0
     mesh: Any = None
+    backend: Optional[str] = None
     name: str = dataclasses.field(default="mesh", init=False)
 
     def bind(self, trainer) -> None:
-        raise NotImplementedError(
-            "the mesh executor (cohort-parallel execution over a `clients` "
-            "device axis) is not ported yet (ROADMAP A13); use "
-            "executor='stacked'")
+        from repro_torch.launch.mesh import make_clients_mesh
+
+        self._claim(trainer)
+        if self.mesh is None:
+            self.mesh = make_clients_mesh(self.shards, trainer.device,
+                                          self.backend)
+        if CLIENTS_AXIS not in (self.mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh {self.mesh.mesh_dim_names} has no "
+                             f"{CLIENTS_AXIS!r} axis")
+        self.num_shards = self.mesh.size(
+            self.mesh.mesh_dim_names.index(CLIENTS_AXIS))
+        self.rank = clients_rank(self.mesh)
+        self._steps: Dict[str, Callable] = {}
+        self._step_key = trainer.seed if trainer.stochastic_downlink \
+            else None
+        if trainer.quantize and getattr(trainer.model, "pq", None) is not None \
+                and getattr(trainer.model, "client_batch", 0) == 0:
+            logger.warning(
+                "mesh executor with a cohort-global PQ codebook "
+                "(model.client_batch=0): clustering runs per client on the "
+                "mesh — set model.client_batch=trainer.client_batch for "
+                "stacked-parity quantization granularity")
+
+    def per_client_layout(self, is_async: bool) -> bool:
+        return True
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.mesh.get_group(CLIENTS_AXIS))
+
+    # ---- placement ---------------------------------------------------------
+    def _slot_count(self, n: int) -> int:
+        """Padded client-slot count: the smallest multiple of the shard
+        count that fits the cohort."""
+        return max(-(-n // self.num_shards) * self.num_shards,
+                   self.num_shards)
+
+    def place(self, participants):
+        """Contiguous-block shard assignment; cluster-major when a
+        topology is installed (participants stably sorted by edge cluster
+        before the block split, so one shard's block holds whole clusters
+        where sizes allow; the scheduler records this order)."""
+        with obs.span("executor.place", cat="executor", backend=self.name,
+                      clients=len(participants)):
+            parts = list(participants)
+            cluster_of = getattr(self, "_cluster_of", None)
+            if cluster_of is not None and parts:
+                order = np.argsort(
+                    np.asarray([int(cluster_of[a.client]) for a in parts]),
+                    kind="stable")
+                parts = [parts[i] for i in order]
+            local = self._slot_count(len(parts)) // self.num_shards
+            return [dataclasses.replace(a, shard=i // local)
+                    for i, a in enumerate(parts)]
+
+    # ---- execution ---------------------------------------------------------
+    def _get_step(self, scope: str) -> Callable:
+        if scope not in self._steps:
+            self._steps[scope] = make_mesh_step(
+                self.trainer.model, self.trainer.optimizer, self.mesh,
+                quantize=self.trainer.quantize, step_key=self._step_key,
+                correction_scope=scope)
+        return self._steps[scope]
+
+    def execute(self, state, parts, weights=None, cut_state=None):
+        sync = weights is None
+        n = len(parts)
+        slots = self._slot_count(n)
+        pad = slots - n
+        with obs.span("executor.execute", cat="executor", backend=self.name,
+                      clients=n, slots=slots, shards=self.num_shards,
+                      mode="sync" if sync else "weighted"):
+            # padding slots repeat the last client (mask 0): only a rank
+            # whose block holds no real client runs one, for its layout
+            batches = list(parts) + [parts[-1]] * pad
+            w = ([1.0] * n if sync else list(weights)) + [1.0] * pad
+            mask = [1.0] * n + [0.0] * pad
+            if cut_state is not None and pad:
+                cut_state = _pad_cut(cut_state, pad)
+            step = self._get_step("cohort" if sync else "client")
+            state, metrics = step(state, batches, w, mask, cut_state)
+            if sync:
+                # synchronous metrics keep the stacked path's keys
+                metrics.pop("mean_staleness_weight", None)
+            return state, metrics
+
+
+def _pad_cut(cut_state, pad: int):
+    """A client-major ``CutState`` grown by ``pad`` copies of its last
+    client."""
+    def grow(x):
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+    q = cut_state.quantizer
+    return type(cut_state)(
+        quantizer=None if q is None else type(q)(*(grow(x) for x in q)),
+        ef_memory=None if cut_state.ef_memory is None
+        else grow(cut_state.ef_memory))
 
 
 # ---------------------------------------------------------------------------

@@ -229,7 +229,13 @@ def snapshot_runtime(trainer, state: TrainState, cursor: Dict[str, Any],
         "flights": [f.to_json() for f in getattr(trace, "flights", [])],
     }
     with obs.span("recovery.snapshot", cat="io", round=step):
-        return save_checkpoint(ckpt_dir, step, tree, extra=meta)
+        # under a mesh executor rank 0 writes and every rank waits for it,
+        # so that any rank may restore from ``ckpt_dir`` after a kill
+        path = save_checkpoint(ckpt_dir, step, tree, extra=meta) \
+            if trainer.writes_files \
+            else os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+        trainer.executor.barrier()
+    return path
 
 
 def _load_meta(ckpt_dir: str, step: int) -> Dict[str, Any]:

@@ -236,7 +236,8 @@ class FederatedTrainer:
     # codebook_delta_bits: measure the pq directions with the `pq-delta`
     # wire kind (quantized codebook deltas vs the acked reference).
     codebook_delta_bits: Optional[int] = None
-    # executor: "stacked" or a CohortExecutor ("mesh" is ROADMAP A13).
+    # executor: "stacked", "mesh" / "mesh(shards=N)" (one process per
+    # shard: every rank builds the same trainer) or a CohortExecutor.
     executor: Any = "stacked"
     # topology: optional aggregation hierarchy (federated/topology.py).
     topology: Any = None
@@ -344,6 +345,13 @@ class FederatedTrainer:
             self.topology.ensure(self.data.num_clients)
             self.executor.set_topology(self.topology)
         self.last_trace: Optional[Trace] = None
+
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes the run's files (the obs event log,
+        snapshots): rank 0 of a mesh executor's ``clients`` group, or the
+        only process. Every rank keeps the same trace and history."""
+        return getattr(self.executor, "rank", 0) == 0
 
     def _install(self, **fields) -> None:
         """Set codec fields on a shallow copy of the model: the caller's
@@ -779,7 +787,8 @@ class FederatedTrainer:
         if trace.flights and self._screen_log:
             flightlib.apply_screening(trace.flights, self._screen_log)
         self.last_trace = trace
-        obs.log_trace(trace)   # no-op unless a recorder is configured
+        if self.writes_files:
+            obs.log_trace(trace)   # no-op unless a recorder is configured
         if self.slo_monitor is not None:
             self.slo_monitor.check(trace)
         return state, history

@@ -1,7 +1,7 @@
 """The default FedLite quantizer of the big archs and ``make_model`` for
 every family (twin of the first part of ``repro/launch/specs.py``; its
-ShapeDtypeStruct and mesh specs go with the mesh executor, ROADMAP
-A13)."""
+ShapeDtypeStruct and mesh specs go with the production meshes, ROADMAP
+A13b)."""
 
 from __future__ import annotations
 

@@ -104,8 +104,9 @@ def train(cfg: ArchConfig, args: argparse.Namespace, *,
     seconds under ``"seconds"``); ``log`` takes the printed lines."""
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the mesh executor and sharding are not "
-            f"ported yet (ROADMAP A13); use --mesh none")
+            f"--mesh {args.mesh}: the production (data, model) meshes and "
+            f"their sharding are not ported yet (ROADMAP A13b); use --mesh "
+            f"none")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train: no CUDA device (use --device cpu for a CPU "

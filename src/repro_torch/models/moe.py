@@ -4,8 +4,9 @@
 Dispatch is grouped: tokens are split into G groups (the batch shards of a
 mesh) and each group scatters into its own (E, C_g, D) buffer with
 per-group capacity C_g = ceil(k·N_g/E · capacity_factor), rounded up to a
-multiple of 8 (at least 8). The port runs without a mesh, so G = 1; the
-group axis stays in the code for the mesh executor (ROADMAP A13).
+multiple of 8 (at least 8). The port's LM runs without a ``("data",
+"model")`` mesh, so G = 1; the group axis stays in the code for the
+production meshes (ROADMAP A13b).
 
 Routing is the reference's, choice for choice:
   * the router runs in f32; top-k takes the lower expert index first on a
@@ -54,7 +55,8 @@ def _expert_init(generator, e: int, d_in: int, d_out: int,
 
 
 def _num_groups(batch: int) -> int:
-    """Dispatch groups = batch shards; one without a mesh (ROADMAP A13)."""
+    """Dispatch groups = batch shards; one without a ``("data",
+    "model")`` mesh (ROADMAP A13b)."""
     del batch
     return 1
 

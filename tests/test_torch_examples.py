@@ -199,9 +199,29 @@ def test_femnist_example_builds_the_references_trainer(argv, tmp_path,
         assert _plain(ours[key]) == _plain(ref[key]), key
 
 
-def test_femnist_example_mesh_executor_names_the_roadmap():
-    """``--executor mesh`` raises, naming ROADMAP A13 as the trainer does
-    (the reference needs several JAX devices for it)."""
-    with pytest.raises(NotImplementedError, match="A13"):
-        femnist_federated_training.main(
-            ["--rounds", "1", "--executor", "mesh", "--device", "cpu"])
+def test_femnist_example_mesh_executor_names_the_roadmap(monkeypatch,
+                                                         capsys):
+    """``--executor mesh`` runs the scheduled loop on the mesh executor (a
+    world of one when launched plainly; the reference needs several JAX
+    devices for it): its round is the same round of the stacked trainer
+    built from the same argv, within the reference's stacked-vs-mesh
+    bounds, with the same trace record but the executor."""
+    fx = femnist_federated_training
+    built, cls = [], fx.FederatedTrainer
+    monkeypatch.setattr(fx, "FederatedTrainer",
+                        lambda *a, **kw: built.append(cls(*a, **kw))
+                        or built[-1])
+    argv = ["--rounds", "1", "--cohort", "3", "--executor", "mesh"]
+    out = _twin(fx, argv, capsys)
+    assert "fleet=ideal policy=full_sync  rounds=1" in out
+    (mesh,) = built
+    assert mesh.last_trace.meta["executor"] == "mesh"
+    stacked = fx.build(fx.parse_args([*argv[:-1], "stacked", "--device",
+                                      "cpu"]))[3](3, fx.FullSync(), None)
+    assert stacked.executor.name == "stacked"
+    stacked.run(1, 0)
+    ours, theirs = mesh.last_trace.records[0], stacked.last_trace.records[0]
+    np.testing.assert_allclose(ours.metrics["loss"], theirs.metrics["loss"],
+                               rtol=5e-4)
+    assert dataclasses.replace(ours, metrics={}) == \
+        dataclasses.replace(theirs, metrics={})

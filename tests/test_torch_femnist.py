@@ -174,11 +174,14 @@ def test_per_client_split_condition_matches_reference():
                                    float(met_j["pq_distortion"]), rtol=1e-4)
 
 
-def test_unported_options_raise():
-    """What still raises: the mesh executor (ROADMAP A13), and a cut state
-    with microbatches, which the reference refuses too. The downlink's wire
-    payload is the reference's frame, and the downlink, step keys and cut
-    state themselves run."""
+def test_unported_options_raise(caplog):
+    """What still raises: a cut state with microbatches, which the
+    reference refuses too. The downlink's wire payload is the reference's
+    frame, and the downlink, step keys and cut state themselves run. The
+    mesh executor runs (a world of one here): it warns, as the reference
+    does, that a cohort-global codebook clusters per client on the mesh,
+    and with per-client codebooks its round is the stacked one's within
+    the reference's stacked-vs-mesh bounds."""
     tm = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=2), lam=1e-4,
                     downlink_compressor="topk(k=0.1)", device=CPU)
     assert tm.downlink_compressor.spec == "topk(k=0.1)"
@@ -189,9 +192,23 @@ def test_unported_options_raise():
         tm.downlink_compressor.compress(torch.from_numpy(z))) == \
         jdl.wire_payload(jdl.compress(jnp.asarray(z[0])))
     data = make_federated_image_data(num_clients=8, seed=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with caplog.at_level("WARNING"):
         FederatedTrainer(tm, sgd(LR), data, cohort=2, client_batch=4,
                          device=CPU, executor="mesh")
+    assert "cohort-global PQ codebook" in caplog.text
+    runs = {}
+    for ex in ("stacked", "mesh"):
+        per_client = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=2),
+                                lam=1e-4, client_batch=4, device=CPU,
+                                generator=torch.Generator().manual_seed(0))
+        tr = FederatedTrainer(per_client, sgd(LR), data, cohort=3,
+                              client_batch=4, device=CPU, executor=ex)
+        runs[ex] = tr.run(1, 0)
+    (s_st, h_st), (s_me, h_me) = runs["stacked"], runs["mesh"]
+    np.testing.assert_allclose(h_me[0]["loss"], h_st[0]["loss"], rtol=5e-4)
+    for k, v in s_st.params.items():
+        np.testing.assert_allclose(s_me.params[k].detach().numpy(),
+                                   v.detach().numpy(), rtol=5e-3, atol=5e-5)
     b = _torch_batch(_jax_batch(0, 4))
     state = TrainState.create(dict(tm.named_parameters()), sgd(LR))
     with pytest.raises(ValueError, match="microbatches"):

@@ -1071,3 +1071,114 @@ def test_lm_train_step_kernels_vs_plain_on_card(arch):
         assert np.isfinite(float(m_k["loss"]))
         np.testing.assert_allclose(float(m_k["loss"]), float(m_p["loss"]),
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the cohort-parallel executor on the card
+# ---------------------------------------------------------------------------
+
+MESH_COHORT, MESH_B, MESH_ITERS = 10, 20, 5
+
+
+def _femnist_trainer(dev, executor, weights=None):
+    """The FEMNIST run at full width (q = 1152, L = 2, 5 Lloyd iterations,
+    cohort 10 of 20 examples, sgd(10**-1.5)) on ``executor``."""
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.federated import FederatedTrainer
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    model = FemnistCNN(pq=PQConfig(1152, 2, kmeans_iters=MESH_ITERS),
+                       lam=1e-4, client_batch=MESH_B, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    if weights is not None:
+        model.load_state_dict(weights)
+    data = make_federated_image_data(num_clients=64, seed=0, device=dev)
+    return FederatedTrainer(model, sgd(10 ** -1.5), data,
+                            cohort=MESH_COHORT, client_batch=MESH_B,
+                            device=dev, executor=executor)
+
+
+def _hold_to_stacked(mesh_loss, mesh_params, stacked_loss, stacked_params):
+    """The reference's stacked-vs-mesh bounds (tests/test_executor.py)."""
+    np.testing.assert_allclose(mesh_loss, stacked_loss, rtol=5e-4)
+    for k, v in stacked_params.items():
+        torch.testing.assert_close(mesh_params[k].detach().cpu(),
+                                   v.detach().cpu(), rtol=5e-3, atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_mesh_world_of_one_matches_stacked_on_card():
+    """One FEMNIST round on the mesh at a world of one (NCCL) against the
+    stacked executor: the loss and params within the reference's bounds,
+    the stacked path's launches exactly (the cohort fused into one batch:
+    5 lloyd_update and 1 pq_quantize, and the wire measurement's
+    compress)."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    s_st, h_st = _femnist_trainer(dev, "stacked").run(1, 0)
+    mesh = _femnist_trainer(dev, "mesh")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    s_me, h_me = mesh.run(1, 0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"lloyd_update": 2 * MESH_ITERS,
+                                      "pq_quantize": 2}
+    assert mesh.executor.num_shards == 1
+    _hold_to_stacked(h_me[0]["loss"], s_me.params, h_st[0]["loss"],
+                     s_st.params)
+
+
+def _mesh_rank_on_card(rank, world, store, out):
+    """A spawned rank: one FEMNIST round on a ``world``-shard gloo mesh on
+    cuda:0, its params and loss saved to ``out``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        state, hist = _femnist_trainer(
+            "cuda", f"mesh(shards={world},backend=gloo)").run(1, 0)
+        torch.save({"loss": hist[0]["loss"],
+                    "params": {k: v.detach().cpu()
+                               for k, v in state.params.items()}}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_mesh_two_gloo_ranks_on_card(tmp_path):
+    """Two spawned ranks on one card (gloo: NCCL refuses two ranks on one
+    device), the kernels built before the spawn: one round, the ranks'
+    params bitwise equal and rank 0 within the reference's bounds of the
+    stacked round."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import _build
+
+    dev = _cuda_or_skip()
+    _build.build(["lloyd_update", "pq_quantize"])
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank_on_card,
+                         args=(r, 2, str(tmp_path / "store"),
+                               str(tmp_path / f"rank{r}.pt")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    for k, v in ranks[0]["params"].items():
+        assert torch.equal(ranks[1]["params"][k], v), k
+    s_st, h_st = _femnist_trainer(dev, "stacked").run(1, 0)
+    _hold_to_stacked(ranks[0]["loss"], ranks[0]["params"], h_st[0]["loss"],
+                     s_st.params)

@@ -382,6 +382,24 @@ def test_installed_codec_leaves_the_callers_module_alone():
     assert tt.model.downlink_compressor is tt.downlink
     assert all(a is b for a, b in zip(tt.model.parameters(),
                                       model.parameters()))
-    with pytest.raises(NotImplementedError, match="A13"):
-        FederatedTrainer(model, sgd(LR), data, cohort=COHORT,
-                         client_batch=B, device=CPU, executor="mesh")
+    # the mesh executor (a world of one here) installs the same codec, and
+    # its round() is the stacked one's within the reference's
+    # stacked-vs-mesh bounds, leaving the caller's state as it was
+    tm = FederatedTrainer(model, sgd(LR), data, cohort=COHORT,
+                          client_batch=B, device=CPU, executor="mesh",
+                          downlink_compressor="topk(k=0.1)")
+    assert model.downlink_compressor is None
+    assert tm.model.downlink_compressor is tm.downlink
+    assert (tm.executor.name, tm.executor.num_shards) == ("mesh", 1)
+    state = tt.init_state()
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    s_st, m_st = tt.round(state, 1)
+    s_me, m_me = tm.round(state, 1)
+    for k, v in state.params.items():
+        assert torch.equal(v, before[k]), k
+    np.testing.assert_allclose(float(m_me["loss"]), float(m_st["loss"]),
+                               rtol=5e-4)
+    for k, v in s_st.params.items():
+        np.testing.assert_allclose(s_me.params[k].detach().numpy(),
+                                   v.detach().numpy(), rtol=5e-3, atol=5e-5)
+    assert s_me.step == s_st.step == 1
