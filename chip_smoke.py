@@ -149,8 +149,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 at 4 layers, and the prefill and decode times;
   8b. lm     -- LM training through launch/train.py, the twin of the
                 reference's training entry point, on one fixed batch of 8
-                sequences of 2048 tokens (one client each), 4 steps a
-                run: Llama-3 8B at full width (d = 4096, 32/8 heads,
+                sequences of 2048 tokens (one client each), 8 steps
+                (Llama) or 3 a run: Llama-3 8B at full width (d = 4096, 32/8 heads,
                 vocab 128256, bf16, Adam) cut to 6 layers (the main
                 path); Mamba2-1.3B as published, through the CLI's
                 main; Mixtral-8x22B at full width cut to 2 layers
@@ -163,6 +163,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                 memory and busy share; then launch/serve.py on
                 Mamba2-1.3B (4 x 2048 prompt, 16 decode steps) and its
                 SSM cache handoff against the forward;
+  8c. sharded -- the production ("data", "model") meshes over DTensor:
+                the lm phase's Llama-3 8B run (6 layers, 8 steps) and the
+                Llama-3 8B serve (4 x 2048, 32 steps) through train(...,
+                mesh=) / serve(..., mesh=) on a (data=1, model=1) NCCL
+                mesh, each held to its --mesh none run (the training
+                to the lm phase's main run; bitwise expected), with the launches of the kernels on the local
+                blocks (32 / 8; 32 / 4 / 1), tokens/s of both and
+                DTensor's dispatch between them; and the llama3_8b x
+                train_4k dry runs on the fake 256- and 512-rank meshes
+                (per-device bytes against the card's HBM, the roofline's
+                bound, host seconds), which trace in a subprocess on the
+                host's CPU from the start of the serve phase on;
   9. times   -- each kernel's device time next to its plain version's, its
                 bound and, where one PyTorch call computes the same
                 function, that call's time (flash attention through both
@@ -179,7 +191,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                 pq_quantize at the three LM runs' cuts; the three
                 clustering kernels above 64 dims (--q 96, D = 128 and Fig.
                 3's (20, 9216) at L = 64); lloyd_update and pq_quantize
-                at a mesh shard's fused clients (5, 23040, 8).
+                at a mesh shard's fused clients (5, 23040, 8); the
+                sharded runs' launches of the three kernels beside the
+                times of the lm_train cut's and the serve prefill's
+                entries (the same shapes: at the 1 x 1 mesh a block is
+                the whole tensor).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -198,6 +214,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -362,7 +379,7 @@ AUTO_ROUNDS, AUTO_INTERVAL = 24, 8
 # launcher's warm-up (lr·(s+1)/10) its first Adam steps move the bf16
 # weights by about one ulp, rounding noise that lifted the loss at step 2
 # on an H100, so its fall shows only once the rate has grown
-LM_B, LM_S, LM_STEPS, LM_MAIN_STEPS = 8, 2048, 4, 8
+LM_B, LM_S, LM_STEPS, LM_MAIN_STEPS = 8, 2048, 3, 8
 LM_MAIN_LAYERS, LM_MOE_LAYERS = 6, 2
 # step 1, kernel route vs plain route on the same cut: both Lloyd runs sum
 # in other orders, so a near-tie subvector may take the other code (the
@@ -3409,14 +3426,19 @@ def lm_hold(tag, cfg, seed, dev="cuda"):
     return float(loss), {"lloyd_update": lloyd_err, "pq_quantize": pq_err}
 
 
-def lm_run(tag, cfg, via_cli, seed, steps, dev="cuda"):
+def fixed_batch(seed_, step):
+    """lm_run's ``step_rng``: step 0's batch at every step."""
+    return np.random.default_rng([seed_ + 1, 0])
+
+
+def lm_run(tag, cfg, via_cli, seed, steps, dev="cuda", keep=False):
     """One LM-training run of ``steps`` steps, every step on step 0's
     batch (chip_smoke swaps the launcher's ``step_rng`` for the run), the
     last one profiled: through the CLI's ``main`` where ``via_cli``, else
     ``train(cfg, args)``. The launch counts are read around the run.
     Returns (counts, routes, the run's history, peak bytes, the profiled
-    step's kernel times)."""
-    import numpy as np_
+    step's kernel times, the final params on the host where ``keep``)."""
+    from repro_torch.core.fedlite import flat_params
     from repro_torch.kernels import _build
     from repro_torch.launch import train
 
@@ -3427,7 +3449,7 @@ def lm_run(tag, cfg, via_cli, seed, steps, dev="cuda"):
         def fixed_rng(seed_, step):
             if step == steps - 1:
                 begin()
-            return np_.random.default_rng([seed_ + 1, 0])
+            return fixed_batch(seed_, step)
 
         def recorded(*a, **kw):
             out["result"] = real_train(*a, **kw)
@@ -3458,8 +3480,12 @@ def lm_run(tag, cfg, via_cli, seed, steps, dev="cuda"):
     per_kernel = phase_profile(f"lm {tag}", run, 1, "step", opens=True)
     for line in lines:
         say("lm", f"{tag}: {line}")
-    _, hist = out.pop("result")
-    return out["counts"], out["routes"], hist, out["peak"], per_kernel
+    state, hist = out.pop("result")
+    params = {k: v.detach().cpu() for k, v in
+              flat_params(state.params).items()} if keep else None
+    del state
+    return (out["counts"], out["routes"], hist, out["peak"], per_kernel,
+            params)
 
 
 def phase_lm_train(seed, dev="cuda"):
@@ -3470,7 +3496,8 @@ def phase_lm_train(seed, dev="cuda"):
     step time (median of steps 2..N−1, host clock with a synchronize),
     tokens/s, peak memory and the busy share of the profiled last step.
     Then the serve of Mamba2-1.3B (phase_ssm_serve). Returns (the main
-    run's launch counts, the kernels' max |err| at the three cuts)."""
+    run's launch counts, the kernels' max |err| at the three cuts, the
+    main run's losses, final params on the host and step time)."""
     import math
     torch.backends.cuda.matmul.allow_tf32 = False
     main_counts, errs = {}, {}
@@ -3481,8 +3508,8 @@ def phase_lm_train(seed, dev="cuda"):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
         t0 = time.perf_counter()
-        counts, routes, hist, peak, _ = lm_run(tag, cfg, via_cli, seed,
-                                               steps, dev)
+        counts, routes, hist, peak, _, params = lm_run(
+            tag, cfg, via_cli, seed, steps, dev, keep=tag == "main")
         run_s = time.perf_counter() - t0
         iters = 4   # launch.specs.default_pq's Lloyd iterations
         want = {"lloyd_update": iters * steps, "pq_quantize": steps}
@@ -3517,10 +3544,243 @@ def phase_lm_train(seed, dev="cuda"):
             f"the hold's kernel-route loss")
         if tag == "main":
             main_counts = counts
+            main_run = {"loss": losses, "params": params, "step_s": step_s}
         del hist
         torch.cuda.empty_cache()
     phase_ssm_serve(seed, dev)
-    return main_counts, errs
+    return main_counts, errs, main_run
+
+
+# the production meshes' machinery (phase_sharded): the lm phase's Llama-3
+# 8B run (LM_MAIN_LAYERS layers, LM_B x LM_S, SHARDED_STEPS steps on its
+# fixed batch) and the Llama-3 8B serve (SERVE_B x SERVE_P, SHARDED_GEN
+# steps) through the launchers under a (data=1, model=1) NCCL mesh, held
+# to the same runs with --mesh none (the lm phase's main run, a serve):
+# bitwise expected (every DTensor op runs its plain op on the whole
+# tensor), else within the bounds; the dry runs of
+# llama3_8b x train_4k on the fake 256- and 512-rank meshes. Ranks of a
+# wider mesh are not run on the one card: DTensor's functional
+# all-gather over gloo on CUDA tensors crashed the ranks (SIGSEGV in
+# wait_tensor, torch 2.11.0+cu128), and NCCL refuses two ranks on one
+# device; tests/test_torch_sharded_step.py holds 4 ranks on the CPU
+SHARDED_STEPS, SHARDED_GEN = LM_MAIN_STEPS, 32
+SHARDED_LOSS_RTOL = 1e-5
+SHARDED_PARAM_TOL = 1e-5          # of (1 + |p|)
+SHARDED_DRYRUN_S = 900
+
+
+def param_gap(a, b):
+    """(max |a − b| / (1 + |a|) over every param, the first param in key
+    order that differs, or None)."""
+    gap, first = 0.0, None
+    for k in a:
+        x, y = a[k].float(), b[k].float()
+        if not torch.equal(a[k], b[k]) and first is None:
+            first = k
+        gap = max(gap, float(((x - y).abs() / (1 + x.abs())).max()))
+    return gap, first
+
+
+def dryrun_start(tmp):
+    """``python -m repro_torch.launch.dryrun`` for llama3_8b x train_4k on
+    both production meshes, started in a subprocess (it runs on the host's
+    CPU while the card works)."""
+    # one thread at the lowest priority: the phases it runs beside are
+    # host-bound
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    with open(os.path.join(tmp, "dryrun.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "llama3_8b", "--shape", "train_4k", "--mesh", "both", "--out",
+             tmp, "--force"], env=env, cwd=str(ROOT), stdout=log,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+
+
+def dryrun_finish(proc, tmp):
+    """Wait for dryrun_start's subprocess; print each record's per-device
+    bytes against the card's HBM, its roofline bound and its host time."""
+    from repro_torch.launch.mesh import HBM_BYTES, HBM_KEY
+    try:
+        proc.wait(timeout=SHARDED_DRYRUN_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"sharded: the dry run took more than {SHARDED_DRYRUN_S} s")
+    with open(os.path.join(tmp, "dryrun.log")) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        fail(f"sharded: the dry run failed:\n{out[-3000:]}")
+    recs = {}
+    for mesh, world in (("single", 256), ("multi", 512)):
+        with open(os.path.join(tmp, f"llama3_8b__train_4k__{mesh}.json")) \
+                as f:
+            rec = json.load(f)
+        r = rec["roofline"]
+        say("sharded", f"dry run llama3_8b x train_4k on {mesh} "
+            f"({rec['mesh']}, a fake group of {rec['world']} ranks): per "
+            f"device {rec['device_bytes'] / 2**30:.2f} GiB of "
+            f"{HBM_BYTES / 2**30:.2f} GiB ({HBM_KEY}={rec[HBM_KEY]}); "
+            f"{rec['cost']['flops'] / 1e12:.2f} TFLOP, "
+            f"{rec['cost']['bytes_accessed'] / 1e12:.2f} TB accessed, "
+            f"{rec['wire_bytes_per_device'] / 1e9:.2f} GB on the wire a "
+            f"device; roofline bound {r['bound']} "
+            f"{r['step_time_lower_bound_s'] * 1e3:.1f} ms (compute "
+            f"{r['compute_s'] * 1e3:.1f}, memory {r['memory_s'] * 1e3:.1f},"
+            f" collective {r['collective_s'] * 1e3:.1f} ms at the H100 "
+            f"SXM5 datasheet's rates); traced in {rec['host_trace_s']:.1f} "
+            f"s of host time, host peak RSS "
+            f"{rec['host_peak_rss_bytes'] / 2**30:.2f} GiB")
+        if rec["world"] != world or not rec["cost"]["flops"] > 0 \
+                or not rec["collectives"]:
+            fail(f"sharded: dry-run record {mesh} malformed: world "
+                 f"{rec['world']}, flops {rec['cost']['flops']}, "
+                 f"collectives {rec['collectives']}")
+        recs[mesh] = rec
+    return recs
+
+
+def phase_sharded(seed, base, dry, tmp_dry, dev="cuda"):
+    """The production meshes' machinery on the card: launch/
+    train.py and launch/serve.py under a (data=1, model=1) NCCL mesh --
+    the params DTensors, the cut's kernels and the prefill's flash kernel
+    run on local blocks -- each held to the same run with --mesh none
+    (the training to the lm phase's main run ``base``: losses and params;
+    the serve's logits; bitwise expected), with the launch counts of the
+    mesh runs, tokens/s of both and the DTensor dispatch overhead between
+    them; then the dry runs' records (``dry``, started by dryrun_start,
+    has run on the host's CPU meanwhile). Returns the mesh runs' launches
+    under "<kernel>/sharded"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = sharded_runs(seed, base, dev)
+    dryrun_finish(dry, tmp_dry)
+    return counts
+
+
+def sharded_runs(seed, base, dev):
+    """phase_sharded's runs on the card (see there)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import llama3_8b
+    from repro_torch.core.fedlite import flat_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(1, 1, device=dev)
+    say("sharded", f"mesh {mesh} over a {dist.get_backend()} world of "
+        f"{dist.get_world_size()}")
+    # the lm phase's main run (lm_run: the same config, seed and fixed
+    # batch, SHARDED_STEPS = LM_MAIN_STEPS) with the mesh
+    cfg = dataclasses.replace(llama3_8b.CONFIG, num_layers=LM_MAIN_LAYERS)
+    argv = ["--arch", "llama3_8b", "--steps", str(SHARDED_STEPS),
+            "--batch", str(LM_B), "--seq", str(LM_S), "--device", dev,
+            "--seed", str(seed), "--log-every", "100"]
+    counts = {}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    real_rng, train.step_rng = train.step_rng, fixed_batch
+    try:
+        state, hist = train.train(cfg, train.parse_args(argv), mesh=mesh,
+                                  log=lambda line: None)
+    finally:
+        train.step_rng = real_rng
+    torch.cuda.synchronize()
+    c = _build.launch_counts()
+    params = {k: train.full(v).detach() for k, v in
+              flat_params(state.params).items()}
+    del state
+    secs = [h["seconds"] for h in hist]
+    loss = [float(h["loss"]) for h in hist]
+    step_s = statistics.median(secs[1:-1])
+    want = {"lloyd_update": 4 * SHARDED_STEPS, "pq_quantize": SHARDED_STEPS}
+    gap, first = param_gap({k: v.to(dev) for k, v in
+                            base["params"].items()}, params)
+    del params
+    loss_gap = max(abs(x - y) / abs(x) for x, y in zip(base["loss"], loss))
+    same = base["loss"] == loss and first is None
+    say("sharded", f"train: llama3_8b, {cfg.num_layers} layers, {LM_B} x "
+        f"{LM_S}, {SHARDED_STEPS} steps on the lm phase's fixed batch; "
+        f"launches under the mesh {c} (want {want}); losses "
+        f"{[round(x, 6) for x in loss]}; "
+        f"{'bitwise' if same else 'not bitwise'} the lm phase's main run "
+        f"(--mesh none; largest loss gap {loss_gap:.3e} relative, "
+        f"params {gap:.3e}·(1 + |p|), first param that differs {first})")
+    say("times", f"sharded train: step {step_s * 1e3:.1f} ms under the "
+        f"1 x 1 mesh vs {base['step_s'] * 1e3:.1f} ms without (median of "
+        f"steps 2..{SHARDED_STEPS - 1}, host clock + synchronize): "
+        f"{LM_B * LM_S / step_s:.0f} vs {LM_B * LM_S / base['step_s']:.0f}"
+        f" tokens/s, DTensor dispatch overhead "
+        f"{(step_s - base['step_s']) * 1e3:.1f} ms a step")
+    if c != want:
+        fail(f"sharded train: launch counts {c} != {want}")
+    if not len(loss) == len(base["loss"]) or \
+            not loss_gap <= SHARDED_LOSS_RTOL or not gap <= SHARDED_PARAM_TOL:
+        fail(f"sharded train: the mesh run parts from --mesh none (loss "
+             f"{loss_gap}, params {gap}, first param {first})")
+    counts.update({f"{k}/sharded": v for k, v in c.items()})
+    torch.cuda.empty_cache()
+
+    sargv = ["--arch", "llama3_8b", "--batch", str(SERVE_B), "--prompt-len",
+             str(SERVE_P), "--gen", str(SHARDED_GEN), "--device", dev,
+             "--seed", str(seed)]
+    outs, times = {}, {}
+    for tag, m in (("none", None), ("mesh", mesh)):
+        lines = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = []
+        tokens = serve.serve(llama3_8b.CONFIG, serve.parse_args(sargv),
+                             mesh=m, log=lines.append,
+                             on_logits=logits.append)
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        outs[tag] = {"logits": logits, "tokens": tokens,
+                     "counts": _build.launch_counts()}
+        say("sharded", f"serve ({tag}): " + "; ".join(lines))
+        torch.cuda.empty_cache()
+    a, b = outs["none"], outs["mesh"]
+    lg_a, lg_b = a["logits"], b["logits"]
+    same = all(torch.equal(x, y) for x, y in zip(lg_a, lg_b))
+    lgap = max(float(((x - y).abs() / (1 + x.abs())).max())
+               for x, y in zip(lg_a, lg_b))
+    swant = {"flash_attention": llama3_8b.CONFIG.num_layers,
+             "lloyd_update": 4, "pq_quantize": 1}
+    say("sharded", f"serve: llama3_8b as published, {SERVE_B} x {SERVE_P} "
+        f"prompts, PQ at the cut, {SHARDED_GEN} greedy steps; launches "
+        f"under the mesh {b['counts']} (want {swant}); logits "
+        f"{'bitwise' if same else 'not bitwise'} the --mesh none serve "
+        f"(largest gap {lgap:.3e}·(1 + |v|)); {times['mesh']:.1f} s vs "
+        f"{times['none']:.1f} s wall")
+    if b["counts"] != swant or a["counts"] != swant:
+        fail(f"sharded serve: launch counts {a['counts']} / {b['counts']} "
+             f"!= {swant}")
+    if not lgap <= SHARDED_PARAM_TOL:
+        fail(f"sharded serve: logits part by {lgap}")
+    if not all(torch.equal(x, y) for x, y in zip(a["tokens"], b["tokens"])):
+        fail("sharded serve: the greedy tokens differ")
+    counts["flash_attention/sharded"] = b["counts"]["flash_attention"]
+    del outs, a, b, lg_a, lg_b
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_entries(kernels, counts):
+    """The kernels line's "<kernel>/sharded" entries: the launches of the
+    sharded runs (``counts``) beside the times, errors and bounds of the
+    entries measured in this run at the same shapes -- at the 1 x 1 mesh
+    a rank's block is the whole tensor, so lloyd_update's and
+    pq_quantize's local rows are the lm_train cut's (LM_B, d/8·LM_S, 8)
+    bf16 and flash's local heads the serve prefill's."""
+    same = {"lloyd_update/sharded": "lloyd_update/lm_train",
+            "pq_quantize/sharded": "pq_quantize/lm_train",
+            "flash_attention/sharded": "flash_attention"}
+    by_name = {e["name"]: e for e in kernels}
+    return [dict(by_name[src], name=name, launches=counts.get(name, 0))
+            for name, src in same.items()]
 
 
 def phase_ssm_serve(seed, dev="cuda"):
@@ -4468,6 +4728,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     t_start = time.perf_counter()
+
+    def mark(phase):
+        say("times", f"{phase}: done {time.perf_counter() - t_start:.1f} s "
+            f"into the run")
+
     name = phase_device()
     phase_build()
     gen = torch.Generator().manual_seed(args.seed)
@@ -4487,6 +4752,7 @@ def main(argv=None) -> int:
     counts.update(pack_codes=payload["pack_codes"],
                   unpack_codes=payload["unpack_codes"])
     del model, batch
+    mark("build, parity and slices")
     # the trainer: lloyd_update's and pq_quantize's launches on the main
     # path (FullSync), scalar_quantize's on the weighted path
     main_counts, weighted_counts, rounds = phase_trainer(args.seed,
@@ -4500,6 +4766,7 @@ def main(argv=None) -> int:
     mesh_counts, mesh_errs = phase_mesh(args.seed, args.steps)
     errs.update(mesh_errs)
     torch.cuda.empty_cache()
+    mark("trainer and mesh")
     # the text tasks: the clustering kernels' launches on the SO runs, by
     # route
     so_counts, lm_data = phase_so_tasks(args.seed)
@@ -4512,37 +4779,56 @@ def main(argv=None) -> int:
     phase_health(args.seed)
     phase_autoscale(args.seed)
     torch.cuda.empty_cache()
+    mark("so, determinism, recovery, health and autoscale")
     # the four examples' twins as their users run them, and Adafactor
     anyd_counts = phase_examples(args.seed)
     anyd_counts["kmeans_assign/anyd"] = fig3_launches
     phase_adafactor(args.seed)
     torch.cuda.empty_cache()
-    # the serve prefill: flash_attention's launches, and the PQ kernels at
-    # their largest shape (4 problems of 1048576 x 8, L = 16), held on the
-    # serve cut
-    serve, layer_err, pq_errs = phase_serve(args.seed)
-    counts["flash_attention"] = serve["flash_attention"]
-    errs["flash_attention"] = max(errs["flash_attention"], layer_err)
-    for kernel, e in pq_errs.items():
-        errs[kernel] = max(errs[kernel], e)
-    torch.cuda.empty_cache()
-    # LM training through launch/train.py: the main path of this slice
-    # (lloyd_update's and pq_quantize's launches in the Llama run), the
-    # SSM and MoE runs, and the Mamba2 serve
-    lm_counts, lm_errs = phase_lm_train(args.seed)
+    mark("examples and adafactor")
+    # the sharded phase's dry runs trace on the host's CPU from here on,
+    # while the serve and LM phases keep the card busy
+    tmp_dry = tempfile.mkdtemp()
+    dry = dryrun_start(tmp_dry)
+    try:
+        # the serve prefill: flash_attention's launches, and the PQ kernels
+        # at their largest shape (4 problems of 1048576 x 8, L = 16), held
+        # on the serve cut
+        serve, layer_err, pq_errs = phase_serve(args.seed)
+        counts["flash_attention"] = serve["flash_attention"]
+        errs["flash_attention"] = max(errs["flash_attention"], layer_err)
+        for kernel, e in pq_errs.items():
+            errs[kernel] = max(errs[kernel], e)
+        torch.cuda.empty_cache()
+        mark("serve")
+        # LM training through launch/train.py: the main path of this slice
+        # (lloyd_update's and pq_quantize's launches in the Llama run), the
+        # SSM and MoE runs, and the Mamba2 serve
+        lm_counts, lm_errs, lm_main = phase_lm_train(args.seed)
+        torch.cuda.empty_cache()
+        mark("lm")
+        # the production meshes: the Llama run and serve under a 1 x 1 NCCL
+        # mesh (the cut's kernels and flash on local blocks), the dry runs
+        sharded_counts = phase_sharded(args.seed, lm_main, dry, tmp_dry)
+        del lm_main
+        mark("sharded")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
     kernels = phase_times(gen, counts, errs, codes, words, serve,
                           assign_counts)
     kernels += time_large_l(gen, so_counts, errs)
     kernels += time_lm_pq(gen, lm_counts, lm_errs)
     kernels += time_anyd(gen, anyd_counts, errs)
     kernels += time_mesh(gen, mesh_counts, errs)
+    kernels += sharded_entries(kernels, sharded_counts)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

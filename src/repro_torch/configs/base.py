@@ -191,6 +191,22 @@ ARCH_IDS = [
 ]
 
 
+# archs whose long_500k decode runs: sub-quadratic attention or state
+LONG_CONTEXT_CAPABLE = {
+    "starcoder2_3b",      # native 4k sliding window
+    "mamba2_1p3b",        # SSM state decode
+    "mixtral_8x22b",      # sliding-window attention
+    "jamba_v0p1_52b",     # hybrid: mamba state + few attn layers
+}
+
+
+def supports_shape(arch_name: str, shape_name: str) -> bool:
+    """False for long_500k on an arch with full attention only."""
+    if shape_name == "long_500k":
+        return arch_name in LONG_CONTEXT_CAPABLE
+    return True
+
+
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
     """Load an architecture config by id (also accepts '-' for '_')."""
     arch_id = arch_id.replace("-", "_")
@@ -199,3 +215,7 @@ def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
                          f"{', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
+
+
+def all_archs(smoke: bool = False):
+    return {a: get_arch(a, smoke=smoke) for a in ARCH_IDS}

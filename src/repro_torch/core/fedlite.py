@@ -40,11 +40,13 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import kmeans as _km
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.core.split import dtype_bits, split_part, tree_bits
 from repro_torch.optim import Optimizer
+from repro_torch.sharding.ctx import like
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -133,6 +135,9 @@ def _grads(model, params: Dict[str, Any], batch, kw: Dict[str, Any],
         grads = torch.autograd.grad(loss if scale is None else loss * scale,
                                     list(flat.values()), allow_unused=True,
                                     materialize_grads=True)
+    # under a (data, model) mesh each gradient takes its param's layout
+    # (a partial sum is reduced here), so the optimizer's state keeps it
+    grads = [like(g, p) for g, p in zip(grads, flat.values())]
     return loss.detach(), metrics, dict(zip(flat, grads))
 
 
@@ -142,7 +147,7 @@ def _apply(optimizer: Optimizer, state: TrainState,
     flat = flat_params(state.params)
     updates, opt_state = optimizer.update(grads, state.opt_state, flat)
     with torch.no_grad():
-        params = {k: (p + updates[k]).requires_grad_()
+        params = {k: like(p + updates[k], p).requires_grad_()
                   for k, p in flat.items()}
     return TrainState(nest_like(state.params, params), opt_state,
                       state.step + 1)
@@ -195,8 +200,8 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, *,
                      for k, p in flat_params(state.params).items()}
             loss = 0.0
             for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                   *v.shape[1:])[i] for k, v in batch.items()}
+                mb = {k: _microbatch(v, microbatches, i)
+                      for k, v in batch.items()}
                 mloss, metrics, g = grads_of(state.params, mb, state.step)
                 for k in g_sum:
                     g_sum[k] += g[k].float()
@@ -207,6 +212,21 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, *,
         return _apply(optimizer, state, grads), dict(metrics, loss=loss)
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, m: int, i: int) -> torch.Tensor:
+    """Rows i·B/m..(i+1)·B/m of a batch leaf. A DTensor split over its
+    rows is sliced (its rows gathered where a microbatch spans shards) and
+    laid out again as it was: DTensor cannot split a sharded dim into (m,
+    B/m) when m does not divide the shards."""
+    n = v.shape[0] // m
+    if isinstance(v, DTensor):
+        part = v[i * n:(i + 1) * n]
+        want = tuple(pl if not (isinstance(pl, Shard) and pl.dim == 0)
+                     or n % size == 0 else Replicate()
+                     for pl, size in zip(v.placements, v.device_mesh.shape))
+        return part.redistribute(v.device_mesh, want)
+    return v.reshape(m, n, *v.shape[1:])[i]
 
 
 def _client_cut(cut_state, c: int, stop: Optional[int] = None):

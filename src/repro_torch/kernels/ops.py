@@ -16,6 +16,10 @@ vmaps one problem per call, the kernels take all of them in one launch.
 ``flash_attention`` takes the reference's (B·H, S, hd) layout and
 ``flash_attention_strided`` the projections' (B, S, H, hd) views, both at
 any S: the kernel masks its ragged last tile, so no padded copy is made.
+
+The kernels take raw pointers, so every wrapper refuses a DTensor: under
+a mesh the models hand them each rank's local block (``sharding/ctx.
+local``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import (flash_attention_bshd,
                                                  flash_attention_kernel)
@@ -43,6 +48,14 @@ def _pad_centroids(c: torch.Tensor, lane: int = 8):
     return cp.contiguous(), lmask
 
 
+def _local(name: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise on a DTensor: a kernel reads one device's memory, and a
+    DTensor's pointer is not its local block's."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{name}: got a DTensor; run the kernel on the local "
+                        f"shards (sharding.ctx.local)")
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x as the streaming kernels read it: f32 or bf16, contiguous (the
     plain versions on the CPU take any float dtype)."""
@@ -57,6 +70,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     x (P, N, D) f32 or bf16, read as it is (no f32 copy); centroids
     (P, L, D). Returns (codes (P, N) int32, sqdist (P, N) f32 =
     max(‖x‖² − best score, 0))."""
+    _local("kmeans_assign", x, centroids)
     return kmeans_assign_kernel(_rows(x), centroids.float().contiguous())
 
 
@@ -65,6 +79,7 @@ def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
 
     x (P, N, D) f32 or bf16; centroids (P, L, D). Returns (z̃ (P, N, D)
     x.dtype, residual (P, N, D) f32, codes (P, N) int32)."""
+    _local("pq_quantize", x, centroids)
     return pq_quantize_kernel(_rows(x), centroids.float().contiguous())
 
 
@@ -75,6 +90,7 @@ def lloyd_update(x: torch.Tensor, centroids: torch.Tensor,
     x (P, N, D) f32 or bf16; centroids (P, L, D); weights (P, N) (padding
     rows carry 0; None = all 1, and no weights are read). Returns (dsums
     (P, L, D) f32 = Σ onehot·(x − c_old), counts (P, L) f32)."""
+    _local("lloyd_update", x, centroids, weights)
     if weights is not None:
         weights = weights.float().contiguous()
     return lloyd_update_kernel(_rows(x), weights,
@@ -88,6 +104,7 @@ def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
     x (P, N) any float dtype, f32 and bf16 read as they are (no f32 copy);
     lo and scale (P,). Returns (codes (P, N) int32 in [0, 2^bits), recon
     (P, N) f32)."""
+    _local("scalar_quantize", x, lo, scale)
     return scalar_quantize_kernel(_rows(x), lo.float().contiguous(),
                                   scale.float().contiguous(), bits)
 
@@ -96,11 +113,13 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack each problem's codes (P, N) at ``bits`` in {1, 2, 4, 8, 16} bits
     into little-endian 32-bit words: (P, ⌈N·bits/32⌉) int32 bit patterns,
     byte for byte the wire's LSB-first stream of each problem."""
+    _local("pack_codes", codes)
     return pack_codes_kernel(codes.to(torch.int32).contiguous(), bits)
 
 
 def unpack_codes(words: torch.Tensor, count: int, bits: int) -> torch.Tensor:
     """Inverse of ``pack_codes``: (P, W) words -> (P, count) int32 codes."""
+    _local("unpack_codes", words)
     return unpack_codes_kernel(words.to(torch.int32).contiguous(), count,
                                bits)
 
@@ -121,6 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B·H, S, hd), k and v (B·Kv, S, hd), f32 or bf16; returns (B·H, S,
     hd) in q.dtype. Raises on an input that requires grad."""
+    _local("flash_attention", q, k, v)
     _forward_only(q, k, v)
     return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                   v.contiguous(), num_q_heads=num_q_heads,
@@ -135,5 +155,6 @@ def flash_attention_strided(q: torch.Tensor, k: torch.Tensor,
     q (B, S, H, hd), k and v (B, S, Kv, hd) views with the head dim
     contiguous; returns (B, S, H, hd) in q.dtype. Raises on an input that
     requires grad."""
+    _local("flash_attention", q, k, v)
     _forward_only(q, k, v)
     return flash_attention_bshd(q, k, v, scale=scale, window=window)

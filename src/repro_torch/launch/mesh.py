@@ -1,17 +1,20 @@
-"""The cohort-parallel ``clients`` mesh (twin of
-``repro/launch/mesh.make_clients_mesh``).
+"""Meshes (twin of ``repro/launch/mesh.py``): the production ``("data",
+"model")`` meshes, a small debug mesh of the same axes, the cohort-parallel
+``clients`` mesh, and the card's constants for the roofline.
 
-The port runs one process per shard, each holding one device, and the
-mesh is a 1-D ``DeviceMesh`` over the ranks of the default process group.
-Launch the ranks with ``torchrun --nproc-per-node N`` (which sets the
-rendezvous in the environment; call ``torch.distributed.
-init_process_group`` before building the trainer) or with
-``torch.multiprocessing.spawn`` and a store of your own. Importing this
-module touches no process group.
+The port runs one process per device, and a mesh is a ``DeviceMesh`` over
+ranks of the default process group. Launch the ranks with ``torchrun
+--nproc-per-node N`` (which sets the rendezvous in the environment; call
+``torch.distributed.init_process_group`` before building a mesh) or with
+``torch.multiprocessing.spawn`` and a store of your own. The dry run
+(``launch/dryrun.py``) builds the production meshes over a fake process
+group of 256 or 512 ranks. Importing this module touches no process group.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Optional
 
 import torch
@@ -19,6 +22,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.sharding.ctx import CLIENTS_AXIS
+
+SINGLE_POD = (16, 16)                  # 256 devices
+MULTI_POD = (2, 16, 16)                # 2 pods = 512 devices
 
 
 def mesh_backend(device) -> str:
@@ -74,3 +80,96 @@ def make_clients_mesh(shards: int = 0, device=None,
             f"{want!r} on {device.type}; initialise the group with {want!r}")
     return init_device_mesh(device.type, (n,),
                             mesh_dim_names=(CLIENTS_AXIS,))
+
+
+def _world_of_one(device: torch.device, backend: Optional[str]) -> None:
+    """A world of one through an in-process store (no port, no network),
+    unless a process group is initialised already."""
+    if not dist.is_initialized():
+        dist.init_process_group(backend or mesh_backend(device),
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+
+
+def init_world(device) -> bool:
+    """The launchers' process group: the one ``torchrun`` describes in
+    the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``), else a
+    world of one. Returns True if this call initialised it (the caller
+    then destroys it), False if a group was initialised already."""
+    if dist.is_initialized():
+        return False
+    device = torch.device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(mesh_backend(device))
+    else:
+        _world_of_one(device, None)
+    return True
+
+
+class MeshTooSmall(RuntimeError):
+    """The process group has fewer ranks than the mesh asked for."""
+
+
+def _mesh_over(shape, axes, device, what: str) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over the first prod(shape) ranks of
+    the default group; too small a world raises, naming the ranks
+    needed."""
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < n:
+        raise MeshTooSmall(
+            f"need {n} ranks for {what} mesh {shape}, have {world}: launch "
+            f"{n} (`torchrun --nproc-per-node ...` across the hosts, "
+            f"calling torch.distributed.init_process_group in each), or "
+            f"trace the step without devices on a fake process group "
+            f"(`python -m repro_torch.launch.dryrun`)")
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_available():
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return DeviceMesh(device.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> DeviceMesh:
+    """(data=16, model=16) single-pod or (pod=2, data=16, model=16)
+    multi-pod, over the first 256 or 512 ranks of the default group (so a
+    512-rank group serves both meshes)."""
+    shape = MULTI_POD if multi_pod else SINGLE_POD
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh_over(shape, axes, device,
+                      "the multi-pod" if multi_pod else "the single-pod")
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, pods: int = 0, *,
+                    device="cuda",
+                    backend: Optional[str] = None) -> DeviceMesh:
+    """Small mesh of the production axes (needs data·model·max(pods, 1)
+    ranks; a mesh of one sets up a world of one if no group is
+    initialised)."""
+    if pods:
+        shape, axes = (pods, data, model), ("pod", "data", "model")
+    else:
+        shape, axes = (data, model), ("data", "model")
+    device = torch.device(device)
+    if math.prod(shape) == 1:
+        _world_of_one(device, backend)
+    return _mesh_over(shape, axes, device, "the debug")
+
+
+# The roofline's constants for launch/analysis.py, per card; each is the
+# datasheet's number for an H100 SXM5 80GB HBM3, 700 W, but HBM_BYTES,
+# the memory.total nvidia-smi reports on that card (81559 MiB)
+# dense bf16 tensor-core peak, FLOP/s (H100 SXM5 80GB HBM3, 700 W)
+PEAK_FLOPS_BF16 = 989e12
+# HBM3 bandwidth, bytes/s (H100 SXM5 80GB HBM3, 700 W)
+HBM_BW = 3.35e12
+# NVLink 4, bytes/s per link per direction (H100 SXM5 80GB HBM3, 700 W)
+NVLINK_BW_PER_LINK = 25e9
+# NVLink 4 links per card (H100 SXM5 80GB HBM3, 700 W)
+NVLINK_LINKS = 18
+# device memory as nvidia-smi reports it (H100 SXM5 80GB HBM3, 700 W)
+HBM_BYTES = 81559 * 1024 ** 2
+HBM_KEY = "fits_80GB"           # the dry-run record's key for HBM_BYTES

@@ -28,6 +28,14 @@ not the whole cache.
 ``positions=None`` means every row sits at 0..S−1, the reference's default
 positions; only then can the prefill take the flash kernel, which masks by
 index.
+
+Under a ``("data", "model")`` mesh (``sharding/ctx.py``) the projections
+are DTensor products, and the attention itself -- the four paths and the
+cache writes -- runs on each rank's local block (``ctx.local``): its batch
+rows over ("pod", "data") and its heads over "model" where both H and Kv
+divide the axis (or the layout of the cache it writes), so the flash
+kernel takes plain local tensors and the cache writes land in the local
+shards.
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ from typing import Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 from repro_torch.models.rope import apply_rope, rope_angles
+from repro_torch.sharding import ctx
 
 NEG_INF = -1e30
 
@@ -70,13 +80,17 @@ def attn_init(generator: Optional[torch.Generator], cfg, dtype: torch.dtype,
 def _project(p, x: torch.Tensor, cfg, angles: torch.Tensor):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Kv,hd) with RoPE applied."""
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = x @ ctx.gathered(p["wq"])
+    k = x @ ctx.gathered(p["wk"])
+    v = x @ ctx.gathered(p["wv"])
     if "wq_b" in p:
         q = q + p["wq_b"]
         k = k + p["wk_b"]
         v = v + p["wv_b"]
+    # under a mesh the projections' outputs split over "model" only at
+    # head boundaries (whole heads of q and of k/v on each rank)
+    heads = ctx.model_entry(cfg.num_heads, cfg.num_kv_heads)
+    q, k, v = (ctx.shard(t, ctx.BATCH, None, heads) for t in (q, k, v))
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -127,7 +141,34 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     """q: (B,S,H,hd), k/v: (B,S,Kv,hd) at positions 0..S−1 -> (B,S,H,hd);
     the kernel reads the projections' views through their strides and
     writes the (B,S,H,hd) output, so no layout is copied."""
+    return torch.ops.repro_torch.flash_prefill(q, k, v, scale, window)
+
+
+@torch.library.custom_op("repro_torch::flash_prefill", mutates_args=())
+def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, window: Optional[int]) -> torch.Tensor:
+    """The flash kernel as one op: on data, the kernel (its plain version
+    on the CPU); on FakeTensors (the dry run), only the output's shape,
+    as the kernel holds no (S, S) scores, and the FLOPs of
+    ``_flash_flops``."""
     return ops.flash_attention_strided(q, k, v, window=window, scale=scale)
+
+
+@_flash_prefill.register_fake
+def _(q, k, v, scale, window):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_prefill)
+def _flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                 **kwargs) -> int:
+    """4·hd FLOPs per causal (query, key) pair in the window: q·k and
+    p·v, a multiply and an add each."""
+    B, S, H, hd = q_shape
+    window = args[1] if len(args) > 1 else kwargs.get("window")
+    W = S if window is None else min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    return 4 * hd * pairs * B * H
 
 
 # ---------------------------------------------------------------------------
@@ -267,43 +308,163 @@ def apply_attention(p, x: torch.Tensor, cfg,
             start=decode_pos if mode == "decode" else 0)
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                          cfg.mrope_sections)
-    q, k, v = _project(p, x, cfg, angles)
+    # the sequence-sharded residual gathered into the projections
+    q, k, v = _project(p, ctx.shard(x, ctx.BATCH, None, None), cfg, angles)
     # token positions along the sequence (1D; batch-uniform by construction)
     pos1d = positions[0, 0] if positions.dim() == 3 else positions[0]
     window = cfg.sliding_window
 
-    if mode == "decode":
-        slot = decode_pos % cache["k"].shape[1]
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        cache["pos"][slot] = decode_pos
-        out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                               decode_pos, window=window, scale=scale)
-    else:
+    def attend(q, k, v, pos1d):
+        """Train or prefill attention of the (local) rows and heads."""
         if window and S > 2 * window and S % window == 0:
-            out = local_window_attention(q, k, v, pos1d, pos1d,
-                                         window=window, scale=scale)
-        elif mode == "prefill" and default:
-            out = flash_prefill_attention(q, k, v, window=window,
-                                          scale=scale)
-        else:
-            out = row_block_attention(q, k, v, pos1d, pos1d, window=window,
-                                      q_chunk=cfg.attn_q_chunk, scale=scale)
+            return local_window_attention(q, k, v, pos1d, pos1d,
+                                          window=window, scale=scale)
+        if mode == "prefill" and default:
+            return flash_prefill_attention(q, k, v, window=window,
+                                           scale=scale)
+        return row_block_attention(q, k, v, pos1d, pos1d, window=window,
+                                   q_chunk=cfg.attn_q_chunk, scale=scale)
+
+    def core(q, k, v, pos1d, ck, cv, cpos):
+        """The attention of the (local) rows and heads; writes the
+        cache's (local) block in place."""
+        if mode == "decode":
+            slot = decode_pos % ck.shape[1]
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            cpos[slot] = decode_pos
+            return decode_attention(q, ck, cv, cpos, decode_pos,
+                                    window=window, scale=scale)
+        out = attend(q, k, v, pos1d)
         if mode == "prefill":
-            Sc = cache["k"].shape[1]
+            Sc = ck.shape[1]
             if Sc >= S:
-                cache["k"][:, :S] = k
-                cache["v"][:, :S] = v
-                cache["pos"][:S] = pos1d
+                ck[:, :S] = k
+                cv[:, :S] = v
+                cpos[:S] = pos1d
             else:  # windowed ring cache: keep the last Sc tokens, ring-aligned
                 # slot invariant: position p lives in slot p % Sc, so later
                 # decode writes (slot = pos % Sc) evict exactly the oldest token
                 shift = S % Sc
-                cache["k"].copy_(torch.roll(k[:, S - Sc:], shift, dims=1))
-                cache["v"].copy_(torch.roll(v[:, S - Sc:], shift, dims=1))
-                cache["pos"].copy_(torch.roll(pos1d[S - Sc:], shift, dims=0))
+                ck.copy_(torch.roll(k[:, S - Sc:], shift, dims=1))
+                cv.copy_(torch.roll(v[:, S - Sc:], shift, dims=1))
+                cpos.copy_(torch.roll(pos1d[S - Sc:], shift, dims=0))
+        return out
 
-    y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    kv = (None,) * 3 if cache is None else \
+        (cache["k"], cache["v"], cache["pos"])
+    rows, heads, seq = _local_layout(B, cfg, kv[0])
+    if seq is not None:
+        out = _seq_sharded(q, k, v, pos1d, kv, rows, seq, attend, mode,
+                           decode_pos, window, scale)
+        y = out @ ctx.gathered(p["wo"])
+        if "wo_b" in p:
+            y = y + p["wo_b"]
+        return ctx.shard_residual(y), cache
+    if heads is None and cache is None and ctx.is_sharded(q) and \
+            ctx.model_entry(cfg.num_heads) is not None:
+        # the q heads divide "model" but the k/v heads do not: each k/v
+        # head repeated for its q heads, so every rank holds whole heads
+        G = cfg.num_heads // cfg.num_kv_heads
+        k, v = (t[:, :, :, None].expand(B, S, cfg.num_kv_heads, G,
+                                        cfg.head_dim).reshape(
+            B, S, cfg.num_heads, cfg.head_dim) for t in (k, v))
+        heads = "model"
+    qkv = ctx.P(rows, None, heads, None)
+    cspec = None if cache is None else qkv
+    # the heads merged inside: a head count the model axis does not divide
+    # cannot be unflattened from a sharded q_dim (in the backward pass)
+    out = ctx.local(lambda *a: core(*a).flatten(2), ctx.P(rows, None, heads),
+                    (qkv, qkv, qkv, ctx.P(), cspec, cspec,
+                     None if cache is None else ctx.P()),
+                    inplace=(4, 5, 6))(q, k, v, pos1d, *kv)
+
+    y = out @ ctx.gathered(p["wo"])
     if "wo_b" in p:
         y = y + p["wo_b"]
-    return y, cache
+    return ctx.shard_residual(y), cache
+
+
+def _local_layout(batch: int, cfg, cache_k: Optional[torch.Tensor]):
+    """The (rows, heads, cache slots) entries of the attention's local
+    block under a mesh: the batch axes where they divide the batch,
+    "model" where it divides both head counts, no slots split; a cache
+    keeps its own layout (``launch/specs.cache_spec_tree``'s: rows, heads
+    or slots split, never head_dim)."""
+    if cache_k is None or not ctx.is_sharded(cache_k):
+        return ctx.batch_entry(batch), ctx.model_entry(
+            cfg.num_heads, cfg.num_kv_heads), None
+    spec = ctx.spec_of(cache_k)
+    if spec[3] is not None:
+        raise ValueError(f"attention: a KV cache laid out as {spec} splits "
+                         f"head_dim")
+    return spec[0], spec[2], spec[1]
+
+
+def _seq_sharded(q, k, v, pos1d, kv, rows, seq, attend, mode, decode_pos,
+                 window, scale):
+    """Attention (B, S, H·hd) against a cache whose slots are split over
+    the mesh axes ``seq`` (the layout the cache policy takes for a cache
+    too large for batch-only sharding): each rank writes the new tokens'
+    K and V that fall in its block of slots. A prefill attends on its
+    rows and all heads; a decode step takes each block's softmax
+    statistics (max, sum, weighted values, in f32) and combines them
+    across the blocks (flash-decoding), exact up to the order of the
+    sums."""
+    ck, cv, cpos = kv
+    spec = ctx.P(rows, None, None, None)
+    cspec = ctx.P(rows, seq, None, None)
+
+    def block(ck):
+        """(this rank's first slot, slots per rank)."""
+        return ctx.flat_rank(seq) * ck.shape[1], ck.shape[1]
+
+    if mode == "prefill":
+        def write(q, k, v, pos1d, ck, cv, cpos):
+            out = attend(q, k, v, pos1d)
+            off, n = block(ck)
+            S, Sc = k.shape[1], cpos.shape[0]
+            if Sc >= S:
+                m = max(0, min(S - off, n))
+                ck[:, :m] = k[:, off:off + m]
+                cv[:, :m] = v[:, off:off + m]
+                cpos[:S] = pos1d
+            else:  # the ring cache's slots, ring-aligned as in `core`
+                shift = S % Sc
+                ck.copy_(torch.roll(k[:, S - Sc:], shift, dims=1)[
+                    :, off:off + n])
+                cv.copy_(torch.roll(v[:, S - Sc:], shift, dims=1)[
+                    :, off:off + n])
+                cpos.copy_(torch.roll(pos1d[S - Sc:], shift, dims=0))
+            return out.flatten(2)
+
+        return ctx.local(write, ctx.P(rows, None, None),
+                         (spec, spec, spec, ctx.P(), cspec, cspec, ctx.P()),
+                         inplace=(4, 5, 6))(q, k, v, pos1d, ck, cv, cpos)
+
+    def stats(q, k, v, ck, cv, cpos):
+        off, n = block(ck)
+        slot = decode_pos % cpos.shape[0]
+        if off <= slot < off + n:
+            ck[:, slot - off] = k[:, 0]
+            cv[:, slot - off] = v[:, 0]
+        cpos[slot] = decode_pos
+        B, _, H, hd = q.shape
+        Kv = ck.shape[2]
+        s = _gqa_scores(q.reshape(B, 1, Kv, H // Kv, hd), ck, scale)
+        qp = torch.full((1,), decode_pos, dtype=cpos.dtype,
+                        device=cpos.device)
+        s = torch.where(_mask(qp, cpos[off:off + n], window), s, NEG_INF)
+        mx = s.amax(-1, keepdim=True)                      # (B,Kv,G,1,1)
+        p = torch.exp(s - mx)
+        o = torch.einsum("bkgqs,bskh->bkgqh", p, cv.float())
+        return mx[None], p.sum(-1, keepdim=True)[None], o[None]
+
+    part = ctx.P(seq, rows, None, None, None, None)
+    mx, den, o = ctx.local(stats, (part, part, part),
+                           (spec, spec, spec, cspec, cspec, ctx.P()),
+                           inplace=(3, 4, 5))(q, k, v, ck, cv, cpos)
+    w = torch.exp(mx - mx.amax(0, keepdim=True))
+    out = (o * w).sum(0) / (den * w).sum(0)                # (B,Kv,G,1,hd)
+    B, _, H, hd = q.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd).to(v.dtype)

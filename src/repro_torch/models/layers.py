@@ -16,6 +16,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import BATCH, gathered, shard, shard_residual
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -93,16 +95,20 @@ def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """x: (..., d_model). The gated forms ignore ``w_up_b``, as the
     reference does; GELU is the tanh approximation."""
+    if x.ndim == 3:   # the sequence-sharded residual gathered into the MLP
+        x = shard(x, BATCH, None, None)
+    w = {k: gathered(v) for k, v in p.items()}
     if mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(x @ w["w_gate"]) * (x @ w["w_up"])
     elif mlp_type == "geglu":
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+        h = F.gelu(x @ w["w_gate"], approximate="tanh") * (x @ w["w_up"])
     else:
-        h = x @ p["w_up"]
+        h = x @ w["w_up"]
         if "w_up_b" in p:
             h = h + p["w_up_b"]
         h = F.gelu(h, approximate="tanh")
-    y = h @ p["w_down"]
+    h = shard(h, BATCH, None, "model")
+    y = h @ w["w_down"]
     if "w_down_b" in p:
         y = y + p["w_down_b"]
-    return y
+    return shard_residual(y) if y.ndim == 3 else y

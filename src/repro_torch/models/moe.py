@@ -2,11 +2,19 @@
 (twin of ``repro/models/moe.py``).
 
 Dispatch is grouped: tokens are split into G groups (the batch shards of a
-mesh) and each group scatters into its own (E, C_g, D) buffer with
-per-group capacity C_g = ceil(k·N_g/E · capacity_factor), rounded up to a
-multiple of 8 (at least 8). The port's LM runs without a ``("data",
-"model")`` mesh, so G = 1; the group axis stays in the code for the
-production meshes (ROADMAP A13b).
+mesh, one without one) and each group scatters into its own (E, C_g, D)
+buffer with per-group capacity C_g = ceil(k·N_g/E · capacity_factor),
+rounded up to a multiple of 8 (at least 8). Under a mesh the routing, the
+scatter and the gather run on each rank's own groups (``ctx.local``:
+DTensor has no rule for them), so they stay local to a shard.
+
+Expert parallelism: expert-stacked weights are sharded over "model"
+whenever E divides the model axis (``sharding/rules.py``); the grouped
+buffer then carries (batch axes, "model") sharding, so the token->expert
+all-to-all is DTensor's redistribute. Otherwise (e.g. 8 experts on a
+16-wide axis) the weights are Megatron column/row parallel inside each
+expert and the buffers shard over groups only, the hidden's F over
+"model" (``_buffer_specs``).
 
 Routing is the reference's, choice for choice:
   * the router runs in f32; top-k takes the lower expert index first on a
@@ -31,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import ctx
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,10 +63,26 @@ def _expert_init(generator, e: int, d_in: int, d_out: int,
                         dtype=torch.float32) * std).to(dtype)
 
 
+def _buffer_specs(num_experts: int):
+    """(ebuf/out spec, hidden spec) for the grouped dispatch buffers.
+
+    Expert-parallel: both sharded over experts. TP-in-expert fallback: the
+    (G,E,C,D) buffers shard only over groups; the hidden (G,E,C,F) shards
+    F over "model" to match the column-parallel expert weights (Megatron
+    pattern), so w_down's row-parallel contraction reduce-scatters
+    back."""
+    if num_experts % max(ctx.axis_size("model"), 1) == 0:
+        ep = (ctx.BATCH, "model", None, None)
+        return ep, ep
+    return ((ctx.BATCH, None, None, None),
+            (ctx.BATCH, None, None, "model"))
+
+
 def _num_groups(batch: int) -> int:
-    """Dispatch groups = batch shards; one without a ``("data",
-    "model")`` mesh (ROADMAP A13b)."""
-    del batch
+    """Dispatch groups = batch shards (so each group is shard-local)."""
+    shards = max(ctx.axis_size("pod"), 1) * max(ctx.axis_size("data"), 1)
+    if shards > 1 and batch % shards == 0:
+        return shards
     return 1
 
 
@@ -103,40 +128,84 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
     E, k = cfg.num_experts, cfg.experts_per_token
     G = _num_groups(B)
     Ng = B * S // G
-    xg = x.reshape(G, Ng, D)
+    xg = ctx.shard(x, ctx.BATCH, None, None).reshape(G, Ng, D)
 
-    logits = xg.float() @ p["router"]                          # (G, Ng, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_idx = top_k(probs, k)                         # (G, Ng, k)
-    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    capacity = capacity_of(cfg, Ng)
+    groups = ctx.P(ctx.batch_entry(G) if G > 1 else None, None, None)
+    buf_spec, hid_spec = _buffer_specs(E)
+
+    def route(xg, router):
+        logits = xg.float() @ router                           # (G, Ng, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_w, gate_idx = top_k(probs, k)                     # (G, Ng, k)
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        chosen = F.one_hot(gate_idx, E).float().sum(2)         # (G, Ng, E)
+        dest, keep = dispatch_slots(gate_idx, E, capacity)
+        return probs, gate_w, chosen, dest, keep
+
+    # the router (its weight gathered) and the routing of each rank's
+    # groups on its block
+    probs, gate_w, chosen, dest, keep = ctx.local(
+        route, (groups,) * 5, (groups, ctx.P()))(xg, p["router"])
 
     # load-balance auxiliary loss (Switch-style), over ALL tokens
     me = probs.mean((0, 1))                                    # (E,)
-    ce = F.one_hot(gate_idx, E).float().sum(2).mean((0, 1))
+    ce = chosen.mean((0, 1))
     aux = E * (me * ce).sum() * cfg.router_aux_weight
 
-    capacity = capacity_of(cfg, Ng)
-    dest, keep = dispatch_slots(gate_idx, E, capacity)
-    groups = torch.arange(G, device=x.device)[:, None]
-    buf = x.new_zeros((G, E * capacity + 1, D))
-    for j in range(k):    # one choice at a time: no (Ng·k, D) buffer
-        buf.index_put_((groups, dest[:, :, j]), xg)
-    ebuf = buf[:, :-1].reshape(G, E, capacity, D)
+    def scatter(xg, dest):
+        g = torch.arange(xg.shape[0], device=xg.device)[:, None]
+        buf = xg.new_zeros((xg.shape[0], E * capacity + 1, D))
+        for j in range(k):    # one choice at a time: no (Ng·k, D) buffer
+            buf.index_put_((g, dest[:, :, j]), xg)
+        return buf[:, :-1].reshape(xg.shape[0], E, capacity, D)
 
-    if "we_gate" in p:
-        gate = torch.einsum("gecd,edf->gecf", ebuf, p["we_gate"])
-        act = F.silu(gate) if cfg.mlp_type == "swiglu" \
-            else F.gelu(gate, approximate="tanh")
-        h = act * torch.einsum("gecd,edf->gecf", ebuf, p["we_up"])
+    ebuf = ctx.local(scatter, ctx.P(*groups, None), (groups, groups))(
+        xg, dest)
+    ebuf = ctx.shard(ebuf, *buf_spec)                          # (G,E,C,D)
+
+    def experts(ebuf, we_gate, we_up, we_down):
+        if we_gate is not None:
+            gate = torch.einsum("gecd,edf->gecf", ebuf, we_gate)
+            act = F.silu(gate) if cfg.mlp_type == "swiglu" \
+                else F.gelu(gate, approximate="tanh")
+            h = act * torch.einsum("gecd,edf->gecf", ebuf, we_up)
+        else:
+            h = F.gelu(torch.einsum("gecd,edf->gecf", ebuf, we_up),
+                       approximate="tanh")
+        return torch.einsum("gecf,efd->gecd", h, we_down)
+
+    # the experts' products on each rank's block (DTensor cannot reshape
+    # the einsums' sharded operands): expert-parallel, each rank's groups
+    # and experts; else TP in each expert, each rank's groups and slice of
+    # d_ff, the down projection's output a partial sum over "model"
+    # (reduced by the constraint after it)
+    if E % max(ctx.axis_size("model"), 1) == 0:
+        bspec = ctx.P(groups[0], ctx.model_entry(E), None, None)
+        w_up = w_down = ctx.P(ctx.model_entry(E), None, None)
+        out = bspec
     else:
-        h = F.gelu(torch.einsum("gecd,edf->gecf", ebuf, p["we_up"]),
-                   approximate="tanh")
-    out_buf = torch.einsum("gecf,efd->gecd", h, p["we_down"])
+        f = ctx.model_entry(cfg.d_ff)
+        bspec = ctx.P(groups[0], None, None, None)
+        w_up, w_down = ctx.P(None, None, f), ctx.P(None, f, None)
+        out = ctx.Sum(bspec, f)
+    gated = "we_gate" in p
+    out_buf = ctx.local(experts, out, (bspec, w_up if gated else None, w_up,
+                                       w_down))(
+        ebuf, p.get("we_gate"), p["we_up"], p["we_down"])
+    out_buf = ctx.shard(out_buf, *buf_spec)
 
-    padded = torch.cat([out_buf.reshape(G, E * capacity, D),
-                        x.new_zeros((G, 1, D))], dim=1)
-    y = x.new_zeros((G, Ng, D))
-    for j in range(k):    # one gather per choice
-        wj = (gate_w[:, :, j] * keep[:, :, j]).to(x.dtype)
-        y = y + padded[groups, dest[:, :, j]] * wj[:, :, None]
-    return y.reshape(B, S, D), aux
+    def combine(out_buf, dest, gate_w, keep):
+        Gl = out_buf.shape[0]
+        g = torch.arange(Gl, device=out_buf.device)[:, None]
+        padded = torch.cat([out_buf.reshape(Gl, E * capacity, D),
+                            out_buf.new_zeros((Gl, 1, D))], dim=1)
+        y = out_buf.new_zeros((Gl, Ng, D))
+        for j in range(k):    # one gather per choice
+            wj = (gate_w[:, :, j] * keep[:, :, j]).to(out_buf.dtype)
+            y = y + padded[g, dest[:, :, j]] * wj[:, :, None]
+        return y
+
+    y = ctx.local(combine, groups, (ctx.P(*groups, None),) + (groups,) * 3)(
+        out_buf, dest, gate_w, keep)
+    return ctx.shard_residual(y.reshape(B, S, D)), aux

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.sharding import ctx
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -162,58 +163,121 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg, *, mode: str = "train",
     if mode != "train" and cache is None or mode == "decode" and S != 1:
         raise ValueError(f"{mode} needs a cache (and decode one token)")
 
-    z, x_in = x @ p["in_proj_z"], x @ p["in_proj_x"]
-    bc_in, dt_raw = x @ p["in_proj_bc"], x @ p["in_proj_dt"]
+    x = ctx.shard(x, ctx.BATCH, None, None)   # the sequence gathered
+    w = {k: ctx.gathered(v) for k, v in p.items() if "proj" in k}
+    z, x_in = x @ w["in_proj_z"], x @ w["in_proj_x"]
+    bc_in, dt_raw = x @ w["in_proj_bc"], x @ w["in_proj_dt"]
 
-    def conv_stream(stream, key, w, b):
-        """Depthwise causal conv on one stream; returns (y, new tail)."""
+    def core(x_in, bc_in, dt_raw, conv_w, conv_b, conv_w_bc, conv_b_bc,
+             dt_bias, A_log, ssm_D, c_h, c_conv, c_conv_bc):
+        """The convolutions and the scan of the (local) rows and heads:
+        y (B, S, din) before the gate; writes the cache's (local) block
+        in place."""
+        Bl, Hl = x_in.shape[0], dt_raw.shape[-1]
+
+        def conv_stream(stream, tail, w, b):
+            """Depthwise causal conv on one stream; returns (y, new
+            tail)."""
+            if mode == "decode":
+                window = torch.cat([tail, stream], dim=1)
+                y = (torch.einsum("bwc,wc->bc", window, w) + b)[:, None]
+                return y, window[:, 1:]
+            conv_in = stream
+            if tail is not None:  # continue from the conv tail
+                conv_in = torch.cat([tail, stream], dim=1)[:, -(S + Wm1):]
+            y = _causal_conv(conv_in, w, b)[:, -S:]
+            # zeros ahead of an input shorter than the tail (the reference
+            # pads by W − 1 − S even after a cache's rows, giving a tail
+            # one row per missing token too long when a cached prefill has
+            # S < W − 1)
+            pad = stream.new_zeros((Bl, max(Wm1 - conv_in.shape[1], 0),
+                                    stream.shape[-1]))
+            return y, torch.cat([pad, conv_in[:, -Wm1:]], dim=1)
+
+        x_c, conv_tail = conv_stream(x_in, c_conv, conv_w, conv_b)
+        bc_c, conv_bc_tail = conv_stream(bc_in, c_conv_bc, conv_w_bc,
+                                         conv_b_bc)
+        x_c, bc_c = F.silu(x_c), F.silu(bc_c)
+        xs = x_c.reshape(Bl, S, Hl, P)
+        Bm, Cm = bc_c[..., :N], bc_c[..., N:]
+        # softplus in f32, then cast to the stream's dtype for the scan
+        dt = F.softplus(dt_raw.float() + dt_bias)                  # (B,S,H)
+        A = -torch.exp(A_log)                                      # (H,) f32
+
         if mode == "decode":
-            window = torch.cat([cache[key], stream], dim=1)
-            y = (torch.einsum("bwc,wc->bc", window, w) + b)[:, None]
-            return y, window[:, 1:]
-        conv_in = stream
-        if cache is not None:  # continue from the conv tail
-            conv_in = torch.cat([cache[key], stream], dim=1)[:, -(S + Wm1):]
-        y = _causal_conv(conv_in, w, b)[:, -S:]
-        # zeros ahead of an input shorter than the tail (the reference pads
-        # by W − 1 − S even after a cache's rows, giving a tail one row per
-        # missing token too long when a cached prefill has S < W − 1)
-        pad = stream.new_zeros((B, max(Wm1 - conv_in.shape[1], 0),
-                                stream.shape[-1]))
-        return y, torch.cat([pad, conv_in[:, -Wm1:]], dim=1)
+            h_prev = c_h
+            dA = torch.exp(dt[:, 0] * A)                           # (B,H) f32
+            upd = torch.einsum("bn,bh,bhp->bhpn",
+                               *_promoted(Bm[:, 0], dt[:, 0], xs[:, 0]))
+            # the recurrent state stays in its cache dtype
+            h = (dA[:, :, None, None] * h_prev + upd).to(h_prev.dtype)
+            y = torch.einsum("bn,bhpn->bhp",
+                             *_promoted(Cm[:, 0], h))[:, None]
+            y = y.to(x_in.dtype)
+            c_h.copy_(h)
+            c_conv.copy_(conv_tail)
+            c_conv_bc.copy_(conv_bc_tail)
+        else:
+            y, h_final = ssd_scan(xs, dt.to(xs.dtype), A.to(xs.dtype), Bm,
+                                  Cm, cfg.ssm_chunk, h0=c_h)
+            if mode == "prefill":
+                c_h.copy_(h_final)
+                c_conv.copy_(conv_tail)
+                c_conv_bc.copy_(conv_bc_tail)
 
-    x_c, conv_tail = conv_stream(x_in, "conv", p["conv_w"], p["conv_b"])
-    bc_c, conv_bc_tail = conv_stream(bc_in, "conv_bc", p["conv_w_bc"],
-                                     p["conv_b_bc"])
-    x_c, bc_c = F.silu(x_c), F.silu(bc_c)
-    xs = x_c.reshape(B, S, H, P)
-    Bm, Cm = bc_c[..., :N], bc_c[..., N:]
-    # softplus in f32, then cast to the stream's dtype for the scan
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])              # (B,S,H)
-    A = -torch.exp(p["A_log"])                                  # (H,) f32
+        y = y + ssm_D.to(y.dtype)[:, None] * xs
+        return y.reshape(Bl, S, Hl * P)
 
-    if mode == "decode":
-        h_prev = cache["h"]
-        dA = torch.exp(dt[:, 0] * A)                            # (B,H) f32
-        upd = torch.einsum("bn,bh,bhp->bhpn",
-                           *_promoted(Bm[:, 0], dt[:, 0], xs[:, 0]))
-        # the recurrent state stays in its cache dtype
-        h = (dA[:, :, None, None] * h_prev + upd).to(h_prev.dtype)
-        y = torch.einsum("bn,bhpn->bhp", *_promoted(Cm[:, 0], h))[:, None]
-        y = y.to(x.dtype)
-        cache["h"].copy_(h)
-        cache["conv"].copy_(conv_tail)
-        cache["conv_bc"].copy_(conv_bc_tail)
-    else:
-        h0 = cache["h"] if cache is not None else None
-        y, h_final = ssd_scan(xs, dt.to(xs.dtype), A.to(xs.dtype), Bm, Cm,
-                              cfg.ssm_chunk, h0=h0)
-        if mode == "prefill":
-            cache["h"].copy_(h_final)
-            cache["conv"].copy_(conv_tail)
-            cache["conv_bc"].copy_(conv_bc_tail)
+    # head-parallel SSD (Mamba TP): every SSD tensor is independent per
+    # head, so the heads (and the x stream's channels) go over "model"
+    # and the rows over the batch axes; B/C (one group) are shared across
+    # heads and stay replicated. A cache keeps its own layout.
+    rows, heads = _local_layout(B, H, None if cache is None else cache["h"])
+    ch = ctx.P(rows, None, heads)
+    rep = ctx.P(rows, None, None)
+    vec = ctx.P(heads)
+    cspecs = (None,) * 3 if cache is None else \
+        (ctx.P(rows, heads, None, None), ch, rep)
+    cache_t = (None,) * 3 if cache is None else \
+        (cache["h"], cache["conv"], cache["conv_bc"])
+    y = ctx.local(core, ch, (ch, rep, ch, ctx.P(None, heads), vec,
+                             ctx.P(), ctx.P(), vec, vec, vec) + cspecs,
+                  inplace=(10, 11, 12))(
+        x_in, bc_in, dt_raw, p["conv_w"], p["conv_b"], p["conv_w_bc"],
+        p["conv_b_bc"], p["dt_bias"], p["A_log"], p["ssm_D"], *cache_t)
+    y = y * F.silu(z)
+    y = ctx.shard(y, ctx.BATCH, None, "model")
+    y = _gate_norm(p["gate_norm"], y, cfg.norm_eps)
+    return ctx.shard_residual(y @ w["out_proj"]), cache
 
-    y = y + p["ssm_D"].to(y.dtype)[:, None] * xs
-    y = y.reshape(B, S, din) * F.silu(z)
-    y = apply_norm(p["gate_norm"], y, "rmsnorm", cfg.norm_eps)
-    return y @ p["out_proj"], cache
+
+def _gate_norm(p: Params, y: torch.Tensor, eps: float) -> torch.Tensor:
+    """The gate's RMSNorm over d_inner. Under a mesh d_inner stays split
+    over "model": each rank sums its block's squares, the sums meet in
+    one all-reduce, and each rank scales its block (DTensor's own rule
+    would reshard the rows, then flatten them strided in the backward
+    pass)."""
+    if not ctx.is_sharded(y):
+        return apply_norm(p, y, "rmsnorm", eps)
+    n = y.shape[-1]
+    block = ctx.P(ctx.batch_entry(y.shape[0]), None, ctx.model_entry(n))
+    rows = ctx.P(block[0], None, None)
+    sq = ctx.local(lambda t: t.float().square().sum(-1, keepdim=True),
+                   ctx.Sum(rows, block[2]), (block,))(y)
+    var = ctx.shard(sq, *rows) / n
+
+    def scale(t, v, s):
+        return (t.float() * torch.rsqrt(v + eps) * s.float()).to(t.dtype)
+
+    return ctx.local(scale, block, (block, rows, ctx.P(block[2])))(
+        y, var, p["scale"])
+
+
+def _local_layout(batch: int, heads: int, cache_h: Optional[torch.Tensor]):
+    """The (rows, heads) entries of the SSM's local block under a mesh:
+    the batch axes where they divide the batch, "model" where it divides
+    the heads; a cache keeps its own layout."""
+    if cache_h is None or not ctx.is_sharded(cache_h):
+        return ctx.batch_entry(batch), ctx.model_entry(heads)
+    spec = ctx.spec_of(cache_h)
+    return spec[0], spec[1]

@@ -63,6 +63,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        dense_init, mlp_init, norm_init)
+from repro_torch.sharding import ctx
 
 Params = Dict[str, Any]
 
@@ -208,7 +209,7 @@ class TransformerLM:
             vis = batch["vision_embeds"].to(x.dtype) \
                 @ client_params["vision_proj"]
             x = torch.cat([vis, x], dim=1)
-        return x.to(cfg.compute_dtype)
+        return ctx.shard_residual(x.to(cfg.compute_dtype))
 
     # ------------------------------------------------------------- periods
     def _training(self, mode: str) -> bool:
@@ -335,10 +336,14 @@ class TransformerLM:
         has_dl = quantize and dl is not None and dl.name != "none"
         if not has_up and not has_dl:
             return x, {}
+        # gather each client's (sequence-sharded) activation so the
+        # per-client compression runs on one rank -- exactly what a real
+        # client does -- and the codecs (and the kernels) see plain local
+        # rows
+        x = ctx.shard(x, ctx.BATCH, None, None)
         lam = self.lam if lam_override is None else lam_override
         clients, n_per_client, d = x.shape  # tokens per client = sequence
         phi = dtype_bits(self.cfg.compute_dtype)
-        z_tilde, stats = x, {}
 
         def pq_bits():
             return {"pq_message_bits": float(
@@ -352,25 +357,46 @@ class TransformerLM:
                     "uplink_compression_ratio":
                         phi * n_per_client * d / max(msg, 1)}
 
-        if has_up and cut_state is not None:
-            comp = up if up is not None else PQCompressor(self.pq)
-            z_tilde, dist, new_state = compress_with_correction_carry(
-                x, lam, cut_state, comp)
-            stats = {"pq_distortion": dist.mean(), "cut_state": new_state}
+        if ctx.is_sharded(x) and cut_state is not None:
+            raise NotImplementedError(
+                "cut_activation: a carried cut_state under a (data, model) "
+                "mesh is not supported; the cohort-parallel clients mesh "
+                "(federated/executor.py) carries cut states")
+
+        def codecs(x):
+            """The uplink and downlink codecs of the (local) clients:
+            (z̃, per-client distortion or None, the next cut state)."""
+            z_tilde, dist, new_state = x, None, None
+            if has_up and cut_state is not None:
+                comp = up if up is not None else PQCompressor(self.pq)
+                z_tilde, dist, new_state = compress_with_correction_carry(
+                    x, lam, cut_state, comp)
+            elif has_up and up is None:
+                # the PQ fast path: fused backend encode + residual reuse
+                z_tilde, dist = quantize_with_correction_stats(x, lam,
+                                                               self.pq)
+            elif has_up:
+                z_tilde, dist = compress_with_correction_stats(x, lam, up)
+            if has_dl:
+                z_tilde = compress_downlink(z_tilde, dl) if key is None \
+                    else compress_downlink_keyed(z_tilde, key, dl)
+            return z_tilde, dist, new_state
+
+        rows = ctx.batch_entry(clients)
+        z_tilde, dist, new_state = ctx.local(
+            codecs, (ctx.P(rows, None, None),
+                     ctx.P(rows) if has_up else None, None),
+            (ctx.P(rows, None, None),))(x)
+        stats = {}
+        if has_up:
+            stats["pq_distortion"] = dist.mean()
+            if new_state is not None:
+                stats["cut_state"] = new_state
             stats.update(pq_bits() if up is None else uplink_bits())
-        elif has_up and up is None:
-            # the PQ fast path: fused backend encode + residual reuse
-            z_tilde, dist = quantize_with_correction_stats(x, lam, self.pq)
-            stats = {"pq_distortion": dist.mean(), **pq_bits()}
-        elif has_up:
-            z_tilde, dist = compress_with_correction_stats(x, lam, up)
-            stats = {"pq_distortion": dist.mean(), **uplink_bits()}
         if has_dl:
-            z_tilde = compress_downlink(z_tilde, dl) if key is None \
-                else compress_downlink_keyed(z_tilde, key, dl)
             stats["downlink_message_bits"] = float(
                 clients * dl.analytic_bits(n_per_client, d, phi_bits=phi))
-        return z_tilde, stats
+        return ctx.shard_residual(z_tilde), stats
 
     def server_forward(self, server_params: Params, acts, batch, *,
                        mode="train", caches=None, decode_pos=None):
@@ -386,16 +412,34 @@ class TransformerLM:
         """(D, Vp) LM head, (K, D, Vp) with K codebooks; the transposed
         embedding table when tied."""
         if self.cfg.tie_embeddings:
-            return params["client"]["tok_embed"].transpose(-1, -2)
-        return params["server"]["head"]
+            head = params["client"]["tok_embed"].transpose(-1, -2)
+        else:
+            head = params["server"]["head"]
+        if self.cfg.num_codebooks > 1:
+            head = ctx.shard(head, None, "data", "model")
+        else:
+            head = ctx.shard(head, "data", "model")
+        # gathered once here, outside the CE chunks
+        return ctx.gathered(head)
 
     def logits(self, params: Params, x: torch.Tensor,
                head: Optional[torch.Tensor] = None) -> torch.Tensor:
         """f32 logits (B, S, Vp), or (B, S, K, Vp) with K codebooks."""
         head = head if head is not None else self.head_matrix(params)
+        x = ctx.shard(x, ctx.BATCH, None, None)   # the sequence gathered
         if self.cfg.num_codebooks > 1:
-            return torch.einsum("bsd,kdv->bskv", x, head.to(x.dtype)).float()
-        return (x @ head.to(x.dtype)).float()
+            # on each rank's rows and vocabulary block: DTensor would merge
+            # the codebooks with the split vocabulary into one dim
+            rows = ctx.batch_entry(x.shape[0])
+            vocab = ctx.spec_of(head)[2] if ctx.is_sharded(head) else None
+            out = ctx.local(
+                lambda x, h: torch.einsum("bsd,kdv->bskv", x, h),
+                ctx.P(rows, None, None, vocab),
+                (ctx.P(rows, None, None), ctx.P(None, None, vocab)))(
+                x, head.to(x.dtype)).float()
+        else:
+            out = (x @ head.to(x.dtype)).float()
+        return ctx.shard(out, ctx.BATCH, None, "model")
 
     # ------------------------------------------------------------- losses
     def loss(self, params: Params, batch, *, quantize: bool = True,
@@ -452,8 +496,29 @@ class TransformerLM:
         mask = labels >= 0
         safe = labels.clamp_min(0)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, safe[..., None])[..., 0]
-        return ((lse - picked) * mask).sum()
+        return ((lse - self._picked(logits, safe)) * mask).sum()
+
+    def _picked(self, logits: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        """Each label's logit. Under a mesh each rank picks from its own
+        block of the vocabulary (zero where the label lies outside it), a
+        partial sum over "model": the gather's backward then scatters
+        into local blocks, not into a (rows, S, V) tensor on every
+        rank."""
+        vocab = ctx.model_entry(logits.shape[-1]) \
+            if ctx.is_sharded(logits) else None
+        inner = (None,) * (logits.ndim - 2)
+        lspec = ctx.P(ctx.batch_entry(logits.shape[0]), *inner)
+
+        def pick(lg, lab):
+            n = lg.shape[-1]
+            idx = lab - n * ctx.axis_rank("model") if vocab else lab
+            inside = (idx >= 0) & (idx < n)
+            got = lg.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+            return torch.where(inside, got, 0.0)
+
+        return ctx.local(pick, ctx.Sum(lspec, vocab),
+                         (ctx.P(*lspec, vocab), lspec))(logits, labels)
 
     def token_ce(self, logits: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,11 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.models.layout import inverse, ref_axes
+from repro_torch.sharding.ctx import like
 
 Schedule = Callable[[int], float]
 Tensors = Dict[str, torch.Tensor]
@@ -172,11 +175,8 @@ def adafactor(lr, eps: float = 1e-30,
         def zs(key, p):
             p = in_ref(key, p)
             if p.dim() >= 2:
-                return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                           device=p.device),
-                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                           dtype=torch.float32,
-                                           device=p.device)}
+                return {"row": _zeros_without(p, p.dim() - 1),
+                        "col": _zeros_without(p, p.dim() - 2)}
             return {"full": torch.zeros_like(p, dtype=torch.float32)}
         return {"step": 0, "v": {k: zs(k, p) for k, p in params.items()}}
 
@@ -195,8 +195,12 @@ def adafactor(lr, eps: float = 1e-30,
                 rms = vn.sqrt()
                 new_v[k] = {"full": vn}
             else:
-                row = beta * v["row"] + one_minus * g2.mean(-1)
-                col = beta * v["col"] + one_minus * g2.mean(-2)
+                # a factor's partial means reduced into its state's layout
+                # (else DTensor may build the outer product below gathered)
+                row = like(beta * v["row"] + one_minus * g2.mean(-1),
+                           v["row"])
+                col = like(beta * v["col"] + one_minus * g2.mean(-2),
+                           v["col"])
                 mean = row.mean(-1, keepdim=True)[..., None]
                 rms = (row[..., None] * col[..., None, :]
                        / mean.clamp_min(eps)).sqrt()
@@ -208,6 +212,21 @@ def adafactor(lr, eps: float = 1e-30,
         return upd, {"step": step, "v": new_v}
 
     return Optimizer(init, update, "adafactor")
+
+
+def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 zeros of ``p``'s shape without dim ``dim``; for a DTensor laid
+    out as ``p`` is on the other dims (a factor of a sharded parameter
+    stays sharded, so the rank-2 second moment it rebuilds is too)."""
+    shape = p.shape[:dim] + p.shape[dim + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    placements = [
+        Replicate() if isinstance(pl, Shard) and pl.dim == dim
+        else Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > dim
+        else pl for pl in p.placements]
+    return dtensor_zeros(shape, dtype=torch.float32,
+                         device_mesh=p.device_mesh, placements=placements)
 
 
 def get_optimizer(name: str, lr, **kw) -> Optimizer:

@@ -1182,3 +1182,86 @@ def test_mesh_two_gloo_ranks_on_card(tmp_path):
     s_st, h_st = _femnist_trainer(dev, "stacked").run(1, 0)
     _hold_to_stacked(ranks[0]["loss"], ranks[0]["params"], h_st[0]["loss"],
                      s_st.params)
+
+
+def _one_rank_mesh_on_card():
+    """A (data=1, model=1) mesh over a NCCL world of one (made here unless
+    a group is open); returns (mesh, True if the group was made here)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    owns = not dist.is_initialized()
+    return make_debug_mesh(1, 1, device="cuda"), owns
+
+
+@pytest.mark.gpu
+def test_cut_under_a_one_rank_mesh_is_the_unsharded_cut_on_card():
+    """TransformerLM.cut_activation on a DTensor over a 1 x 1 NCCL mesh:
+    the kernels run on the local block (4 lloyd_update and 1 pq_quantize
+    launches, as unsharded), z̃, the distortion and the eq.-5 gradient
+    bitwise the unsharded cut's."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.specs import make_model
+    from repro_torch.sharding.ctx import BATCH, P, to_placements, use_mesh
+
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(get_arch("llama3_8b", smoke=True),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    model = make_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn((4, 64, cfg.d_model), generator=gen).to(
+        dev, torch.bfloat16)
+    w = torch.randn(x0.shape, generator=gen).to(dev, torch.bfloat16)
+
+    def cut(x):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        z, stats = model.cut_activation(x, quantize=True)
+        full = z.full_tensor() if hasattr(z, "full_tensor") else z
+        (full.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        return z, stats["pq_distortion"], _build.launch_counts()
+
+    x = x0.clone().requires_grad_()
+    z, dist_, counts = cut(x)
+    mesh, owns = _one_rank_mesh_on_card()
+    try:
+        with use_mesh(mesh):
+            xd = distribute_tensor(x0.clone(), mesh, to_placements(
+                P(BATCH, None, None), mesh)).requires_grad_()
+            zd, dist_d, counts_d = cut(xd)
+            assert torch.equal(zd.full_tensor(), z)
+            assert torch.equal(dist_d.full_tensor(), dist_)
+            assert torch.equal(xd.grad.full_tensor(), x.grad)
+    finally:
+        if owns:
+            dist.destroy_process_group()
+    assert counts == counts_d == {"lloyd_update": 4, "pq_quantize": 1}
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_a_dtensor_on_card():
+    """A CUDA DTensor handed straight to a kernel wrapper raises: the
+    kernels read raw pointers, so under a mesh they take local blocks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    dev = _cuda_or_skip()
+    x, c = _inputs(0, dev, 2, 64, 8, 16)
+    mesh, owns = _one_rank_mesh_on_card()
+    try:
+        xd = distribute_tensor(x, mesh, (Replicate(), Replicate()))
+        with pytest.raises(TypeError, match="DTensor"):
+            ops.pq_quantize(xd, c)
+        with pytest.raises(TypeError, match="DTensor"):
+            ops.lloyd_update(xd, c)
+    finally:
+        if owns:
+            dist.destroy_process_group()

@@ -109,11 +109,16 @@ def test_train_loop_matches_reference_steps(tmp_path, arch):
         assert hist[s]["seconds"] > 0
 
 
-def test_train_mesh_other_than_none_names_the_roadmap():
-    args = ttrain.parse_args(["--arch", "llama3_8b", "--smoke", "--device",
-                              "cpu", "--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttrain.train(tbase.get_arch("llama3_8b", smoke=True), args)
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_launcher_mesh_on_a_world_of_one_exits_with_the_mesh_error(launcher):
+    """``--mesh single`` on a world of one: the launcher exits through the
+    production mesh's error, naming the 256 ranks it needs; it does not
+    fall back to ``--mesh none``."""
+    from repro_torch.launch import serve as tserve
+    main = ttrain.main if launcher == "train" else tserve.main
+    with pytest.raises(SystemExit, match="need 256 ranks"):
+        main(["--arch", "llama3_8b", "--smoke", "--device", "cpu",
+              "--mesh", "single"])
 
 
 _BLOCKED = """
