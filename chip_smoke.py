@@ -175,6 +175,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                 (per-device bytes against the card's HBM, the roofline's
                 bound, host seconds), which trace in a subprocess on the
                 host's CPU from the start of the serve phase on;
+  8d. lint   -- the port's static gate (python -m repro_torch.lint over
+                src/repro_torch, csrc/ included, and this script: any
+                finding fails the run; the card's machine has no jax),
+                then each path's host syncs on the card through
+                repro_torch.lint.dispatch (op and file:line, one [lint]
+                line a path): a warm FEMNIST step at full width, the
+                FullSync trainer's run(2) and run(4) (their copies to the
+                host held equal, 3 each, as on the CPU), and Llama-3 8B
+                at full width cut to 2 layers: a training step (8 x
+                2048), a prefill (4 x 2048, PQ uplink) and a decode step;
   9. times   -- each kernel's device time next to its plain version's, its
                 bound and, where one PyTorch call computes the same
                 function, that call's time (flash attention through both
@@ -203,6 +213,10 @@ from a checkout of the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
+
+# This script times and checks every step and round of the paths it drives,
+# so it waits for the card inside their loops and callbacks on purpose.
+# fedlint: disable-file=host-sync-in-loop,host-sync-in-callback
 
 import argparse
 import contextlib
@@ -1895,31 +1909,31 @@ def mesh_result(trainer, state, hist, ms):
             "round_ms": list(ms)}
 
 
-def mesh_hold(tag, mesh, stacked, params=True):
+def mesh_hold(tag, got, stacked, params=True):
     """A mesh run against the stacked run from the same weights: per-round
     losses within MESH_LOSS_RTOL, final params (unless ``params`` is
     False: then printed only) within MESH_PARAM_RTOL / MESH_PARAM_ATOL
     (the reference's stacked-vs-mesh bounds), the trace's participants and
     bytes equal. Returns the largest relative loss gap."""
-    la, lb = np.asarray(mesh["loss"]), np.asarray(stacked["loss"])
+    la, lb = np.asarray(got["loss"]), np.asarray(stacked["loss"])
     gap = float(np.max(np.abs(la - lb) / np.abs(lb))) if len(lb) else 0.0
     worst = max(float((a - stacked["params"][k]).abs().max())
-                for k, a in mesh["params"].items())
+                for k, a in got["params"].items())
     close = all(torch.allclose(a, stacked["params"][k], rtol=MESH_PARAM_RTOL,
                                atol=MESH_PARAM_ATOL)
-                for k, a in mesh["params"].items())
+                for k, a in got["params"].items())
     say("mesh", f"{tag} vs stacked: {len(la)} rounds, max relative loss gap "
         f"{gap:.3e} (bound {MESH_LOSS_RTOL}); max |Δparam| {worst:.3e} "
         f"({'held' if params else 'not held'}, within the bounds: "
         f"{close}); participants and bytes equal: "
-        f"{mesh['participants'] == stacked['participants'] and mesh['bytes'] == stacked['bytes']}")
+        f"{got['participants'] == stacked['participants'] and got['bytes'] == stacked['bytes']}")
     if len(la) != len(lb) or not gap <= MESH_LOSS_RTOL \
             or not np.all(np.isfinite(la)):
         fail(f"{tag}: losses {la.tolist()} vs stacked {lb.tolist()}")
     if params and not close:
         fail(f"{tag}: params off from the stacked run's by {worst}")
-    if mesh["participants"] != stacked["participants"] \
-            or mesh["bytes"] != stacked["bytes"]:
+    if got["participants"] != stacked["participants"] \
+            or got["bytes"] != stacked["bytes"]:
         fail(f"{tag}: the trace's participants or bytes differ")
     return gap
 
@@ -4712,6 +4726,168 @@ def phase_adafactor(seed, dev="cuda"):
         fail(f"adafactor: conv2's row factor {tuple(row.shape)}")
 
 
+# ---------------------------------------------------------------------------
+# lint: the port's static gate, and each path's host syncs on the card
+# ---------------------------------------------------------------------------
+
+# the FullSync trainer's copies to the host whatever its rounds: the wire
+# measurement's codes and codebooks, and the run's metrics in one transfer
+# (tests/test_torch_trainer.py counts the same three .cpu() calls on the CPU)
+LINT_FULLSYNC_COPIES = 3
+LINT_LM_LAYERS = 2
+
+
+def say_syncs(path, syncs):
+    """One [lint] line: the path's host syncs, each op at its Python line
+    with its count, in the order of their first occurrence."""
+    from repro_torch.lint import dispatch
+
+    seen = {}
+    for s in syncs:
+        seen[s] = seen.get(s, 0) + 1
+    listed = "; ".join(f"{op} @ {where}" + (f" x{n}" if n > 1 else "")
+                       for (op, where), n in seen.items()) or "none"
+    say("lint", f"{path}: {len(syncs)} host sync(s), "
+        f"{len(dispatch.copies_to_host(syncs))} copies to the host: {listed}")
+
+
+def lint_gate():
+    """``python -m repro_torch.lint`` over src/repro_torch (csrc/ included)
+    and this script, in process: any finding fails the run."""
+    from repro_torch.lint import available_passes, run_lint
+
+    t0 = time.perf_counter()
+    paths = [str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py")]
+    findings = run_lint(paths)
+    for f in findings:
+        say("lint", f.format())
+    say("lint", f"fedlint over src/repro_torch (csrc/ included) and "
+        f"chip_smoke.py: {len(findings)} finding(s) from "
+        f"{len(available_passes())} pass(es) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if findings:
+        fail(f"fedlint: {len(findings)} finding(s) on the port's tree")
+
+
+def lint_femnist(seed):
+    """A bare FEMNIST step at full width (phase_slice's), warm, and the
+    FullSync trainer's run(2) and run(4) (make_trainer's, fresh trainers
+    from the same weights)."""
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.core.quantizer import PQConfig
+    from repro_torch.data.synthetic import make_federated_image_data
+    from repro_torch.lint import dispatch
+    from repro_torch.models.paper_models import FemnistCNN
+    from repro_torch.optim import sgd
+
+    gen = torch.Generator().manual_seed(seed)
+    pq = PQConfig(num_subvectors=Q, num_clusters=L, num_groups=R,
+                  kmeans_iters=ITERS)
+    model = FemnistCNN(pq=pq, lam=LAM, client_batch=CLIENT_BATCH,
+                       device="cuda", generator=gen)
+    state = TrainState.create(dict(model.named_parameters()), sgd(LR))
+    batch = make_batches(make_federated_image_data, seed, 1)[0]
+    step = make_train_step(model, sgd(LR))
+    step(state, batch)
+    torch.cuda.synchronize()
+    say_syncs(f"FEMNIST step ({CLIENTS} clients x {CLIENT_BATCH}, q={Q} "
+              f"L={L}, {ITERS} Lloyd iterations)",
+              dispatch.host_syncs(step, state, batch))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, state, step
+
+    copies = {}
+    for rounds in (2, 4):
+        trainer = make_trainer("cuda", torch.Generator().manual_seed(seed),
+                               state=weights)
+        torch.cuda.synchronize()
+        with dispatch.recording_syncs() as syncs:
+            trainer.run(rounds, seed)
+        torch.cuda.synchronize()
+        say_syncs(f"FederatedTrainer FullSync run({rounds})", syncs)
+        copies[rounds] = len(dispatch.copies_to_host(syncs))
+        del trainer
+    say("lint", f"FullSync copies to the host: run(2) {copies[2]}, run(4) "
+        f"{copies[4]} (want {LINT_FULLSYNC_COPIES} each, as on the CPU)")
+    if not copies[2] == copies[4] == LINT_FULLSYNC_COPIES:
+        fail(f"FullSync copies to the host {copies}: want "
+             f"{LINT_FULLSYNC_COPIES} for both runs")
+
+
+def lint_lm(seed):
+    """Llama-3 8B at full width cut to LINT_LM_LAYERS layers (the cut after
+    1): a warm FedLite training step on an LM_B x LM_S batch through
+    launch/train.py's step, then, from the same params, a warm prefill of
+    SERVE_B prompts of SERVE_P tokens with the PQ uplink and a warm decode
+    step, as phase_serve drives them."""
+    import dataclasses
+    from repro_torch.configs.llama3_8b import CONFIG
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.launch.specs import make_model
+    from repro_torch.launch.train import make_batch, step_rng
+    from repro_torch.lint import dispatch
+    from repro_torch.optim import get_optimizer, warmup_cosine
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(CONFIG, num_layers=LINT_LM_LAYERS,
+                              cut_periods=1)
+    model = make_model(cfg)
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(1e-4, 10, 100))
+    step = make_train_step(model, opt)
+    state = TrainState.create(
+        model.init(torch.Generator(dev).manual_seed(seed), dev), opt)
+    batch = make_batch(cfg, step_rng(seed, 0), LM_B, LM_S, dev)
+    step(state, batch)
+    torch.cuda.synchronize()
+    say_syncs(f"{cfg.name} training step ({cfg.num_layers} layers, "
+              f"{LM_B} x {LM_S})", dispatch.host_syncs(step, state, batch))
+    params = state.params
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    B, P = SERVE_B, SERVE_P
+    with torch.inference_mode():
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                               generator=torch.Generator(dev)
+                               .manual_seed(seed + 1))
+
+        def prefill():
+            caches = model.init_caches(B, P + 1, dev)
+            return model.prefill(params, {"tokens": prompt}, caches,
+                                 quantize=True)
+
+        def decode(lg, caches):
+            nxt = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+            return model.decode_step(params, caches, nxt, P)
+
+        decode(*prefill())                      # warm
+        torch.cuda.synchronize()
+        with dispatch.recording_syncs() as syncs:
+            lg, caches = prefill()
+        torch.cuda.synchronize()
+        say_syncs(f"{cfg.name} prefill ({B} x {P}, PQ uplink)", syncs)
+        say_syncs(f"{cfg.name} decode step (batch {B})",
+                  dispatch.host_syncs(decode, lg, caches))
+        torch.cuda.synchronize()
+        del params, caches, lg
+    torch.cuda.empty_cache()
+
+
+def phase_lint(seed):
+    """The port's static gate on the card's machine (which has no jax),
+    then the host syncs of the main paths on the card, one [lint] line a
+    path: the starting map for the CUDA-graph work."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    lint_gate()
+    lint_femnist(seed)
+    t1 = time.perf_counter()
+    lint_lm(seed)
+    say("lint", f"sync lists: FEMNIST {t1 - t0:.1f} s with the gate, "
+        f"Llama-3 8B {time.perf_counter() - t1:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4816,6 +4992,9 @@ def main(argv=None) -> int:
         if dry.poll() is None:
             dry.kill()
             dry.wait()
+    # the port's lint gate and the host syncs of each path on the card
+    phase_lint(args.seed)
+    mark("lint")
     kernels = phase_times(gen, counts, errs, codes, words, serve,
                           assign_counts)
     kernels += time_large_l(gen, so_counts, errs)

@@ -814,7 +814,10 @@ extern "C" int flash_attention_tc_launch(
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
-  if (bad_shape(bsz, s, hd, h, kvh) || hd % 16 != 0)
+  if (bad_shape(bsz, s, hd, h, kvh) || hd % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
   if (bsz == 0 || s == 0) return 0;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},

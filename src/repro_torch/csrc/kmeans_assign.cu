@@ -208,7 +208,7 @@ extern "C" int kmeans_assign_launch(const void* x, const void* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (d != 8 || lmask != nullptr || rows != kD8Threads * kD8Rows ||
-        nblocks < 1)
+        nblocks < 1 || misaligned16(x))
       return (int)cudaErrorInvalidValue;
     return (int)(bf16 ? launch_d8_l<__nv_bfloat16>(x, c, codes, sqdist, p,
                                                    n, l, nblocks, s)

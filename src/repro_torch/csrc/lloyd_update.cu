@@ -251,9 +251,9 @@ lloyd_generic(const T* __restrict__ x, const float* __restrict__ w,
   for (int o = tid; o < nout; o += kThreads) {
     const int li = o / (kc + 1), k = o % (kc + 1);
     if (k < kc)
-      out[li * (d + 1) + k0 + k] = acc[o];
+      out[(size_t)li * (d + 1) + k0 + k] = acc[o];
     else if (k0 == 0)
-      out[li * (d + 1) + d] = acc[o];
+      out[(size_t)li * (d + 1) + d] = acc[o];
   }
 }
 
@@ -370,9 +370,9 @@ lloyd_tiled_stats(const T* __restrict__ x, const float* __restrict__ w,
   for (int o = tid; o < nout; o += kThreads) {
     const int j = o / (kc + 1), k = o % (kc + 1);
     if (k < kc)
-      out[j * (d + 1) + k0 + k] = acc[o];
+      out[(size_t)j * (d + 1) + k0 + k] = acc[o];
     else if (k0 == 0)
-      out[j * (d + 1) + d] = acc[o];
+      out[(size_t)j * (d + 1) + d] = acc[o];
   }
 }
 
@@ -584,7 +584,7 @@ extern "C" int lloyd_update_launch(const void* x, const void* w,
   if (nblocks > 0) {
     cudaError_t e;
     if (route == 1) {
-      if (d != 8 || rows != kD8Threads * kD8Rows)
+      if (d != 8 || rows != kD8Threads * kD8Rows || misaligned16(x))
         return (int)cudaErrorInvalidValue;
       e = bf16 ? launch_d8_l<__nv_bfloat16>(x, w, c, lmask, partials, p, n,
                                              l, nblocks, s)

@@ -229,7 +229,8 @@ extern "C" int pq_quantize_launch(const void* x, const void* c,
   if (p == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (d != 8 || rows != kD8Threads * kD8Rows || nblocks < 1)
+    if (d != 8 || rows != kD8Threads * kD8Rows || nblocks < 1 ||
+        misaligned16(x) || misaligned16(zt) || misaligned16(resid))
       return (int)cudaErrorInvalidValue;
     return (int)(bf16 ? launch_d8_l<__nv_bfloat16>(x, c, lmask, zt, resid,
                                                    codes, p, n, l, nblocks, s)

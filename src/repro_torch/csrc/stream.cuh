@@ -16,7 +16,7 @@
 // release the slot on its "empty" barrier, lane 0 for the warp. Loads of
 // later tiles stay in flight while the consumers compute. Addresses and
 // sizes are multiples of 16 bytes: the caller routes a misaligned x
-// elsewhere.
+// elsewhere, and the launchers refuse one (misaligned16).
 #pragma once
 
 #include <cstdint>
@@ -24,6 +24,11 @@
 #include "assign.cuh"
 
 namespace repro_torch {
+
+// Host side: true where p cannot take the d8 routes' 16-byte accesses.
+inline bool misaligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

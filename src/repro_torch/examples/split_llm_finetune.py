@@ -76,9 +76,10 @@ def main(argv=None) -> int:
         batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         state, m = step(state, batch)
         if s % 20 == 0 or s == args.steps - 1:
-            print(f"step {s:4d}  loss={float(m['loss']):.4f}  "
-                  f"ce={float(m['ce']):.4f}  "
-                  f"distortion={float(m.get('pq_distortion', 0)):.3f}  "
+            # a logged step's line reads its metrics: one sync a log line
+            print(f"step {s:4d}  loss={float(m['loss']):.4f}  "  # fedlint: disable=host-sync-in-loop
+                  f"ce={float(m['ce']):.4f}  "  # fedlint: disable=host-sync-in-loop
+                  f"distortion={float(m.get('pq_distortion', 0)):.3f}  "  # fedlint: disable=host-sync-in-loop
                   f"({time.time() - t0:.0f}s)")
     return 0
 

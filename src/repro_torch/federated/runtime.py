@@ -638,7 +638,7 @@ class FederatedTrainer:
         `QuantizerState` and ships b-bit codebook deltas against it."""
         qb1, qstate = quantize_stateful(acts2[None], cfg)
         # loopback of bytes we just encoded — nothing untrusted on this wire
-        ref = wire.decode_bytes(
+        ref = wire.decode_bytes(  # fedlint: disable=unchecked-wire-decode
             wire.encode_bytes(qb1, self.codebook_wire_dtype)) \
             .codebooks.astype(np.float32)
         qb2, _ = quantize_stateful(acts_b[None], cfg, qstate)

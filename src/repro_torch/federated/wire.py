@@ -114,13 +114,6 @@ import torch
 from repro_torch.core import compressors as comps
 from repro_torch.core.quantizer import PQConfig, QuantizedBatch, bits_per_code
 
-# The lint's wire manifest (``repro/lint/wire_manifest.json``) pins the
-# reference's encoder bodies by file name. These bodies differ (torch
-# inputs, bf16 without ml_dtypes) while the frames they write do not:
-# tests/test_torch_wire.py holds every frame, byte for byte, to the
-# reference's. A manifest of the port's own encoders is ROADMAP A16.
-# fedlint: disable-file=wire-version-stale
-
 # magic, version, dtype code, bit width, payload kind, n, d, q, R, L
 _HEADER = struct.Struct("<4sBBBBIIHHI")
 HEADER_BYTES = _HEADER.size  # 24

@@ -203,8 +203,9 @@ def _train(cfg: ArchConfig, args: argparse.Namespace, device, mesh, log):
         _sync(device)
         history.append(dict(m, seconds=time.perf_counter() - t_step))
         if s % args.log_every == 0 or s == args.steps - 1:
-            log(f"step {s:5d}  loss={float(m['loss']):.4f}  "
-                f"ce={float(m['ce']):.4f}  "
+            # a logged step's line reads its metrics: one sync a log line
+            log(f"step {s:5d}  loss={float(m['loss']):.4f}  "  # fedlint: disable=host-sync-in-loop
+                f"ce={float(m['ce']):.4f}  "  # fedlint: disable=host-sync-in-loop
                 f"{(time.perf_counter() - t0):.0f}s")
         if args.ckpt_dir and args.ckpt_every and \
                 (s + 1) % args.ckpt_every == 0:

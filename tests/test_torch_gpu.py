@@ -1265,3 +1265,56 @@ def test_kernel_wrappers_refuse_a_dtensor_on_card():
     finally:
         if owns:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# host syncs on the card (repro_torch.lint.dispatch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_femnist_step_host_syncs_include_the_copies_on_card():
+    """On CUDA tensors ``host_syncs`` also sees the copies to the host (on
+    the CPU there are none to see): a FEMNIST step, then its loss copied
+    to the host, each sync with its op and a line of this repo."""
+    from repro_torch.core.fedlite import TrainState, make_train_step
+    from repro_torch.lint import dispatch
+    from repro_torch.optim import sgd
+
+    dev = _cuda_or_skip()
+    trainer = _femnist_trainer(dev, "stacked")
+    model = trainer.model
+    state = TrainState.create(dict(model.named_parameters()), sgd(0.03))
+    rng = np.random.default_rng(0)
+    parts = [trainer.data.sample_batch(c, rng, MESH_B) for c in range(3)]
+    batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    step = make_train_step(model, sgd(0.03))
+
+    def step_and_read():
+        _, met = step(state, batch)
+        return met["loss"].cpu()
+
+    syncs = dispatch.host_syncs(step_and_read)
+    copies = dispatch.copies_to_host(syncs)
+    line = step_and_read.__code__.co_firstlineno + 2
+    assert copies[-1] == ("aten._to_copy (cuda -> cpu)",
+                          f"tests/test_torch_gpu.py:{line}")
+    assert all(":" in s.where and not s.where.startswith("<")
+               for s in syncs)
+
+
+@pytest.mark.gpu
+def test_fullsync_copies_to_host_do_not_grow_with_rounds_on_card():
+    """The FullSync run's copies to the host are the CPU test's three
+    (.cpu() of the wire measurement's codes and codebooks, and the metrics
+    of every round in one transfer) for 2 rounds and for 4."""
+    from repro_torch.lint import dispatch
+
+    dev = _cuda_or_skip()
+    copies = []
+    for rounds in (2, 4):
+        trainer = _femnist_trainer(dev, "stacked")
+        with dispatch.recording_syncs() as syncs:
+            trainer.run(rounds, 0)
+        copies.append(dispatch.copies_to_host(syncs))
+    assert len(copies[0]) == len(copies[1]) == 3, copies
+    assert [s.where for s in copies[0]] == [s.where for s in copies[1]]
