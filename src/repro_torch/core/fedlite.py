@@ -42,6 +42,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.core import kmeans as _km
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.core.split import dtype_bits, split_part, tree_bits
@@ -123,34 +124,38 @@ def _grads(model, params: Dict[str, Any], batch, kw: Dict[str, Any],
     params as a flat dict), each operation deterministic on the card.
     ``scale`` differentiates ``scale · loss`` instead: the cotangent that
     reaches the cut is scaled, the eq.-5 correction added there is not."""
-    flat = flat_params(params)
     with _deterministic_cudnn():
-        if isinstance(model, nn.Module):
-            loss, metrics = torch.func.functional_call(model, params,
-                                                       (batch,), kw)
-        else:
-            loss, metrics = model.loss(params, batch, **kw)
-        # a parameter the loss does not reach (the unused ln2 of an SSM
-        # block without an FFN) gets zeros, as under jax.grad
-        grads = torch.autograd.grad(loss if scale is None else loss * scale,
-                                    list(flat.values()), allow_unused=True,
-                                    materialize_grads=True)
-    # under a (data, model) mesh each gradient takes its param's layout
-    # (a partial sum is reduced here), so the optimizer's state keeps it
-    grads = [like(g, p) for g, p in zip(grads, flat.values())]
+        with obs.span("step.forward", cat="step"):
+            flat = flat_params(params)
+            if isinstance(model, nn.Module):
+                loss, metrics = torch.func.functional_call(model, params,
+                                                           (batch,), kw)
+            else:
+                loss, metrics = model.loss(params, batch, **kw)
+        with obs.span("step.backward", cat="step"):
+            # a parameter the loss does not reach (the unused ln2 of an
+            # SSM block without an FFN) gets zeros, as under jax.grad
+            grads = torch.autograd.grad(
+                loss if scale is None else loss * scale, list(flat.values()),
+                allow_unused=True, materialize_grads=True)
+            # under a (data, model) mesh each gradient takes its param's
+            # layout (a partial sum is reduced here), so the optimizer's
+            # state keeps it
+            grads = [like(g, p) for g, p in zip(grads, flat.values())]
     return loss.detach(), metrics, dict(zip(flat, grads))
 
 
 def _apply(optimizer: Optimizer, state: TrainState,
            grads: Tensors) -> TrainState:
     """The state after one optimizer update by ``grads`` (flat)."""
-    flat = flat_params(state.params)
-    updates, opt_state = optimizer.update(grads, state.opt_state, flat)
-    with torch.no_grad():
-        params = {k: like(p + updates[k], p).requires_grad_()
-                  for k, p in flat.items()}
-    return TrainState(nest_like(state.params, params), opt_state,
-                      state.step + 1)
+    with obs.span("step.update", cat="step"):
+        flat = flat_params(state.params)
+        updates, opt_state = optimizer.update(grads, state.opt_state, flat)
+        with torch.no_grad():
+            params = {k: like(p + updates[k], p).requires_grad_()
+                      for k, p in flat.items()}
+        return TrainState(nest_like(state.params, params), opt_state,
+                          state.step + 1)
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, *,

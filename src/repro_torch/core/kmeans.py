@@ -45,6 +45,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops, ref
 
 
@@ -172,32 +173,35 @@ def batched_lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,
     p, n, d = x.shape
     L = num_clusters
     b = get_backend(backend, x.device)
-    if init_centroids is not None:
-        cents = init_centroids.float()
-        if cents.shape != (p, L, d):
-            raise ValueError(f"init_centroids {tuple(cents.shape)} != "
-                             f"{(p, L, d)}")
-    else:
-        cents = _init_centroids(x, L, generator)
-    if num_iters == 0:
+    with obs.span("kmeans.lloyd", cat="kmeans"):
+        if init_centroids is not None:
+            cents = init_centroids.float()
+            if cents.shape != (p, L, d):
+                raise ValueError(f"init_centroids {tuple(cents.shape)} != "
+                                 f"{(p, L, d)}")
+        else:
+            with obs.span("kmeans.seed", cat="kmeans"):
+                cents = _init_centroids(x, L, generator)
+        if num_iters == 0:
+            return cents
+        if b.name == "cuda":
+            weights = None
+        else:
+            # pad N up to a multiple of chunk, as the reference's scan
+            # tiles do; padded rows carry zero weight
+            x = x.float()
+            chunk = min(chunk, max(n, 1))
+            n_pad = (-n) % chunk
+            x = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
+            weights = (torch.arange(n + n_pad, device=x.device) < n) \
+                .float().expand(p, -1).contiguous()
+        for _ in range(num_iters):
+            dsums, counts = b.update(x, weights, cents)
+            # empty clusters keep their previous centroid
+            cnt = counts.unsqueeze(-1)
+            cents = cents + torch.where(cnt > 0, dsums / cnt.clamp_min(1.0),
+                                        0.0)
         return cents
-    if b.name == "cuda":
-        weights = None
-    else:
-        # pad N up to a multiple of chunk, as the reference's scan tiles
-        # do; padded rows carry zero weight
-        x = x.float()
-        chunk = min(chunk, max(n, 1))
-        n_pad = (-n) % chunk
-        x = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
-        weights = (torch.arange(n + n_pad, device=x.device) < n).float() \
-            .expand(p, -1).contiguous()
-    for _ in range(num_iters):
-        dsums, counts = b.update(x, weights, cents)
-        # empty clusters keep their previous centroid
-        cnt = counts.unsqueeze(-1)
-        cents = cents + torch.where(cnt > 0, dsums / cnt.clamp_min(1.0), 0.0)
-    return cents
 
 
 def lloyd(x: torch.Tensor, num_clusters: int, num_iters: int = 8, *,

@@ -701,8 +701,9 @@ class FederatedTrainer:
         def execute(update_idx: int, participants: Sequence[Arrival],
                     weights: Sequence[float]) -> Dict:
             nonlocal state
-            parts = [self.client_batch_for(a.client, a.version + 1)
-                     for a in participants]
+            with obs.span("trainer.draw_batches", cat="trainer"):
+                parts = [self.client_batch_for(a.client, a.version + 1)
+                         for a in participants]
             if inj is not None and parts:
                 participants, parts, weights, fl = self._screen_cohort(
                     inj, update_idx, participants, parts, weights)

@@ -4,8 +4,13 @@ SLO health and the run inspector (twin of ``repro/obs``).
   spans.py   — `span`/`virtual_span`/`event`/`instrument` record host
                wall-clock and the scheduler's simulated clock as parallel
                lanes into a module-level `Recorder` (`configure` installs
-               one; everything is a no-op otherwise, and while
-               ``torch.compile`` traces).
+               one); while torch's profiler runs, every host span is also
+               a ``record_function`` range on the device trace's clock.
+               Everything is a no-op with neither, and while
+               ``torch.compile`` traces. The spans of the round (scheduler,
+               batch draws, executor, the step's forward / backward /
+               update, k-means and its seeding, the wire codec) are
+               listed in its docstring.
   metrics.py — `MetricsBuffer` plus the ``counter``/``gauge``/``histogram``
                helpers: metrics stay device tensors through the run and
                the whole run flushes with ONE device→host transfer.
@@ -26,7 +31,7 @@ Typical wiring:
 
     from repro_torch import obs
     obs.configure(run="bench", meta={"fleet": "lognormal"})
-    ...  # run training; Scheduler/executor/wire spans record themselves
+    ...  # run training; the round's spans record themselves
     rec = obs.shutdown()
     rec.write_jsonl("run.jsonl")
     rec.write_perfetto("run.perfetto.json")

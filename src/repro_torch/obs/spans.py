@@ -5,12 +5,28 @@ Twin of ``repro/obs/spans.py``. The reference's in-jit no-op is a
 
 A `Recorder` collects plain-dict events; ``span``/``virtual_span``/``event``
 are the module-level entry points the hot path calls. When no recorder is
-configured (the default) every entry point is a near-zero-cost no-op, so
-instrumentation can live permanently in `Scheduler.run`, the executors, the
-wire codec, Lloyd/kmeans and checkpoint I/O without taxing uninstrumented
-runs.
+configured and torch's profiler is off (the default) every entry point is
+a near-zero-cost no-op, so instrumentation lives permanently on the hot
+path without taxing uninstrumented runs. The spans that exist:
 
-Two time lanes, recorded side by side:
+  * ``scheduler.round`` / ``scheduler.flush`` — one server update of the
+    scheduler (``federated/scheduler.py``);
+  * ``trainer.draw_batches`` — the cohort's ``client_batch_for`` calls in
+    ``FederatedTrainer.run``; ``trainer.measure_round_bytes`` — the wire
+    measurement a run starts with (``federated/runtime.py``);
+  * ``executor.place`` / ``executor.execute`` — the cohort's placement and
+    its step (``federated/executor.py``);
+  * ``step.forward`` / ``step.backward`` / ``step.update`` — a step's
+    forward (its k-means included), its ``autograd.grad`` and the
+    optimizer's update, in every step of ``core/fedlite.py``;
+  * ``kmeans.lloyd`` — a ``batched_lloyd`` call, and ``kmeans.seed`` — its
+    seeding (cold starts only: the L - 1 farthest-point host steps)
+    (``core/kmeans.py``);
+  * ``wire.*`` — the wire codec (``federated/wire.py``);
+    ``checkpoint.save`` / ``checkpoint.restore`` / ``recovery.snapshot`` —
+    checkpoint I/O.
+
+Three time lanes:
 
   * host   — ``time.perf_counter`` seconds since the recorder's epoch; what
              the process actually spent (launch time for device work —
@@ -18,12 +34,18 @@ Two time lanes, recorded side by side:
              device→host syncs).
   * virtual — the scheduler's simulated clock (``virtual_span``); what the
              modeled fleet spent.
+  * profiler — while torch's profiler runs (``torch.profiler.profile``),
+             every host span also opens a ``record_function`` range of its
+             name, with or without a recorder: the span then sits on the
+             device trace's clock as a user annotation, with the kernels
+             launched under it. No event dict changes for it.
 
 Spans are trace-safe: while ``torch.compile`` traces
 (``torch.compiler.is_compiling()``) every entry point degrades to a no-op,
 so a span in a function that is sometimes compiled records eager calls
 only. Span ``args`` must be plain host values (ints, strs, shapes), never
-device tensors.
+device tensors. Spans nest by interval on a thread; the events carry no
+parent id.
 
 Event schema (one JSON-able dict per event; see ``export.py``):
 
@@ -48,6 +70,10 @@ def _eager() -> bool:
     """False while ``torch.compile`` traces the caller: a span in a
     function that is sometimes compiled records eager calls only."""
     return not torch.compiler.is_compiling()
+
+
+# whether torch's profiler is recording now (a C call, well under 1 us)
+_profiling = torch.autograd._profiler_enabled
 
 
 class Recorder:
@@ -107,18 +133,26 @@ class Recorder:
 
 
 class _Span:
-    """Host-lane span context manager (created only when recording)."""
-    __slots__ = ("_rec", "name", "cat", "args", "_t0")
+    """Host-lane span context manager (created only when recording or
+    profiling): ``rec`` None records nothing, ``profiled`` opens a
+    ``record_function`` range around the interval."""
+    __slots__ = ("_rec", "name", "cat", "args", "_t0", "_range")
 
-    def __init__(self, rec: Recorder, name: str, cat: str, args: Dict):
+    def __init__(self, rec: Optional[Recorder], name: str, cat: str,
+                 args: Dict, profiled: bool):
         self._rec = rec
         self.name = name
         self.cat = cat
         self.args = args
         self._t0 = 0.0
+        self._range = torch.profiler.record_function(name) \
+            if profiled else None
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._rec.now()
+        if self._range is not None:
+            self._range.__enter__()
+        if self._rec is not None:
+            self._t0 = self._rec.now()
         return self
 
     def set(self, **args) -> None:
@@ -126,9 +160,13 @@ class _Span:
         self.args.update(args)
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        self._rec.append({"type": "span", "lane": "host", "name": self.name,
-                          "cat": self.cat, "t0": self._t0,
-                          "t1": self._rec.now(), "args": self.args})
+        if self._rec is not None:
+            self._rec.append({"type": "span", "lane": "host",
+                              "name": self.name, "cat": self.cat,
+                              "t0": self._t0, "t1": self._rec.now(),
+                              "args": self.args})
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -175,11 +213,12 @@ def enabled() -> bool:
 
 
 def span(name: str, cat: str = "app", **args):
-    """Host-lane span context manager; a no-op when disabled or tracing."""
-    rec = _RECORDER
-    if rec is None or not _eager():
+    """Host-lane span context manager, also a profiler range while torch's
+    profiler runs; a no-op with neither, and while tracing."""
+    rec, profiled = _RECORDER, _profiling()
+    if (rec is None and not profiled) or not _eager():
         return _NULL_SPAN
-    return _Span(rec, name, cat, args)
+    return _Span(rec, name, cat, args, profiled)
 
 
 def virtual_span(name: str, t_start: float, t_end: float,
@@ -210,7 +249,7 @@ def instrument(name: Optional[str] = None,
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if _RECORDER is None or not _eager():
+            if (_RECORDER is None and not _profiling()) or not _eager():
                 return fn(*args, **kwargs)
             with span(label, cat=cat):
                 return fn(*args, **kwargs)
