@@ -136,7 +136,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                 LLM fine-tune (200 steps) and split serving (flash
                 attention in prefill) at their reduced defaults;
   7i. adafactor -- a FEMNIST step under Adafactor (the conv weights
-                factored over I and O, as the reference) against the CPU's;
+                factored over I and O, as the reference; the Adafactor
+                kernel, one launch a leaf), TF32 off, against the same step
+                on the card with Adafactor's plain version, then against
+                the CPU's;
   8. serve   -- split serving of Llama-3 8B at full width (32 layers,
                 d = 4096, 32/8 heads, vocab 128256, bf16, random weights
                 from --seed): the prefill of 4 prompts of 2048 tokens with
@@ -205,7 +208,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                 sharded runs' launches of the three kernels beside the
                 times of the lm_train cut's and the serve prefill's
                 entries (the same shapes: at the 1 x 1 mesh a block is
-                the whole tensor).
+                the whole tensor); the Adafactor kernel at the Mixtral
+                cell's expert stack and embedding, bf16, held to its plain
+                version on the card (the state within 1e-5 relative, the
+                update within one bf16 ulp and exact on 99.5 %);
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -497,7 +503,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = ["lloyd_update", "pq_quantize", "kmeans_assign", "scalar_quant",
-            "flash_attention"]
+            "flash_attention", "adafactor"]
     infos = _build.build(libs)
     for name, info in infos.items():
         say("build", f"{name}: {info.path.name} in {info.seconds:.1f} s")
@@ -3511,10 +3517,13 @@ def phase_lm_train(seed, dev="cuda"):
     tokens/s, peak memory and the busy share of the profiled last step.
     Then the serve of Mamba2-1.3B (phase_ssm_serve). Returns (the main
     run's launch counts, the kernels' max |err| at the three cuts, the
-    main run's losses, final params on the host and step time)."""
+    main run's losses, final params on the host and step time, the
+    Adafactor kernel's launches in the MoE run)."""
     import math
+    from repro_torch.core.fedlite import flat_params
+    from repro_torch.launch.specs import make_model
     torch.backends.cuda.matmul.allow_tf32 = False
-    main_counts, errs = {}, {}
+    main_counts, errs, adafactor_launches = {}, {}, 0
     for tag, cfg, via_cli, steps in lm_runs():
         t0 = time.perf_counter()
         loss1, e = lm_hold(tag, cfg, seed, dev)
@@ -3527,6 +3536,9 @@ def phase_lm_train(seed, dev="cuda"):
         run_s = time.perf_counter() - t0
         iters = 4   # launch.specs.default_pq's Lloyd iterations
         want = {"lloyd_update": iters * steps, "pq_quantize": steps}
+        if cfg.optimizer == "adafactor":   # one launch a leaf a step
+            want["adafactor_update"] = steps * len(flat_params(
+                make_model(cfg).init(None, "meta")))
         losses = [float(h["loss"]) for h in hist]
         secs = [h["seconds"] for h in hist]
         step_s = statistics.median(secs[1:-1])
@@ -3559,10 +3571,11 @@ def phase_lm_train(seed, dev="cuda"):
         if tag == "main":
             main_counts = counts
             main_run = {"loss": losses, "params": params, "step_s": step_s}
+        adafactor_launches += counts.get("adafactor_update", 0)
         del hist
         torch.cuda.empty_cache()
     phase_ssm_serve(seed, dev)
-    return main_counts, errs, main_run
+    return main_counts, errs, main_run, adafactor_launches
 
 
 # the production meshes' machinery (phase_sharded): the lm phase's Llama-3
@@ -4041,6 +4054,86 @@ def phase_times(gen, counts, errs, payload_codes, payload_words,
     kernels.append(time_flash(gen, counts, errs))
     time_serve_pq(gen, serve_counts)
     kernels += time_assign_scalar(gen, counts, errs, assign_counts)
+    return kernels
+
+
+# the Adafactor kernel against its plain version on the card, as the card
+# tests hold it (tests/test_torch_adafactor_kernel.py): the new state
+# within ADAFACTOR_STATE_RTOL (sums of up to 32768 f32 terms in another
+# order, means that divide where torch multiplies by 1/N), the bf16
+# update within one ulp everywhere and exact on ADAFACTOR_EXACT_SHARE
+ADAFACTOR_STATE_RTOL = 1e-5
+ADAFACTOR_EXACT_SHARE = 0.995
+
+
+def hold_adafactor(tag, got, want):
+    """The kernel's (bf16 update, state) against the plain version's:
+    fails past the limits above; returns (max |err| of the update, its
+    largest gap in bf16 ulps, its exact share, the state's largest
+    relative gap)."""
+    (out, new), (ref_out, ref_new) = got, want
+    ulps = (out.view(torch.int16).int() - ref_out.view(torch.int16).int()) \
+        .abs()
+    exact = float((ulps == 0).float().mean())
+    rel = max(float(((new[k] - ref_new[k]).abs()
+                     / ref_new[k].abs().clamp_min(1e-38)).max())
+              for k in new)
+    err = float((out.float() - ref_out.float()).abs().max())
+    if not (int(ulps.max()) <= 1 and exact >= ADAFACTOR_EXACT_SHARE
+            and rel <= ADAFACTOR_STATE_RTOL):
+        fail(f"adafactor_update at the {tag}: the update {int(ulps.max())} "
+             f"bf16 ulps from the plain version's, exact on {exact:.4f} "
+             f"(want 1 and {ADAFACTOR_EXACT_SHARE}); the state "
+             f"{rel:.3e} relative (want {ADAFACTOR_STATE_RTOL})")
+    return err, int(ulps.max()), exact, rel
+
+
+def time_adafactor(launches, seed):
+    """The Adafactor kernel at the Mixtral cell's largest leaves, bf16: an
+    expert stack (1, 8, 6144, 16384) and the embedding (32768, 6144), held
+    to its plain version on the card (hold_adafactor) and timed beside it
+    and its bound: the gradient read once and the update written once, 4
+    bytes an element at 3.35 TB/s (the kernel reads the gradient three
+    times, 8 bytes an element). ``launches``: the kernel's in the lm
+    phase's MoE run, whose leaves these shapes are."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.adafactor import adafactor_update_kernel
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(beta=0.75, one_minus=0.25, lr=1e-3, eps=1e-30, clip=1.0)
+    kernels = []
+    for tag, shape in (("expert stack", (1, 8, 6144, 16384)),
+                       ("embedding", (32768, 6144))):
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3) \
+            .to(torch.bfloat16)
+        v = {"row": torch.rand(shape[:-1], generator=gen, device=dev),
+             "col": torch.rand(shape[:-2] + shape[-1:], generator=gen,
+                               device=dev)}
+
+        def kern():
+            return adafactor_update_kernel(g, v, **kw)
+
+        def plain():
+            return ref.adafactor_update_ref(g, v, **kw)
+        err, ulps, exact, rel = hold_adafactor(tag, kern(), plain())
+        k_ms = device_ms(kern, calls=5, reps=4)
+        p_ms = device_ms(plain, calls=1, reps=3)
+        b_ms, b_by = bound(4 * g.numel(), 0)
+        say("times", f"adafactor_update at the {tag} {shape} bf16: kernel "
+            f"{k_ms:.3f} ms (device, CUDA graph); plain {p_ms:.3f} ms; "
+            f"bound {b_ms:.3f} ms by {b_by} (4 B an element); against the "
+            f"plain version: update max |err| {err:.3e}, at most {ulps} "
+            f"bf16 ulp, exact on {exact:.5f}; state {rel:.3e} relative")
+        kernels.append({"name": f"adafactor_update/{tag.replace(' ', '_')}",
+                        "route": "cuda",
+                        "source": "src/repro_torch/csrc/adafactor.cu",
+                        "replaces": None, "launches": launches,
+                        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        del g, v
+        torch.cuda.empty_cache()
     return kernels
 
 
@@ -4679,17 +4772,27 @@ def phase_examples(seed, dev="cuda"):
 
 def phase_adafactor(seed, dev="cuda"):
     """One FEMNIST FedLite step (q = 1152, L = 2, 10 clients of 20) under
-    Adafactor on the card, against the same step on the CPU (the plain
-    versions) from the same weights and batch: the update within
-    UPDATE_RTOL (relative L2) on the client's and the server's params (the
-    conv weights' factors over I and O, as the reference's)."""
-    from repro_torch.core.fedlite import TrainState, make_train_step
+    Adafactor on the card (the kernel, one launch a leaf), first against
+    the same step on the card with Adafactor's plain version from the same
+    weights and batch (the same loss, the update within
+    ADAFACTOR_F32_RTOL relative L2 on the client's and the server's
+    params, each leaf's state within ADAFACTOR_STATE_RTOL: the kernel's
+    share alone), then against the same step on the CPU (the plain
+    versions): the update within UPDATE_RTOL (relative L2) on the client's
+    and the server's params (the conv weights' factors over I and O, as
+    the reference's)."""
+    from repro_torch.core.fedlite import (TrainState, flat_params,
+                                          make_train_step)
     from repro_torch.core.quantizer import PQConfig
     from repro_torch.data.synthetic import make_federated_image_data
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.models.paper_models import FemnistCNN
     from repro_torch.optim import adafactor
 
+    # the CPU has no TF32: with cuDNN's on (torch's default) the card's
+    # convolutions moved the update 5e-2 to 1.1e-1 from the CPU's
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for where in (dev, "cpu"):
         model = FemnistCNN(pq=PQConfig(Q, L, kmeans_iters=ITERS), lam=LAM,
@@ -4708,8 +4811,17 @@ def phase_adafactor(seed, dev="cuda"):
         new, met = make_train_step(model, opt)(state, batch)
         if where == dev:
             torch.cuda.synchronize()
+            leaves = len(flat_params(state.params))
             want_counts("adafactor step", _build.launch_counts(),
-                        {"lloyd_update": ITERS, "pq_quantize": 1})
+                        {"lloyd_update": ITERS, "pq_quantize": 1,
+                         "adafactor_update": leaves})
+            kernel_update = ops.adafactor_update
+            ops.adafactor_update = ref.adafactor_update_ref
+            try:
+                plain, plain_met = make_train_step(model, opt)(state, batch)
+            finally:
+                ops.adafactor_update = kernel_update
+            hold_adafactor_step(state, (new, met), (plain, plain_met))
         out[where] = (state, new, float(met["loss"]))
     before = {k: v.detach().float() for k, v in out["cpu"][0].params.items()}
     gaps, worst = update_gaps(before, out[dev][1].params, out["cpu"][1].params)
@@ -4724,6 +4836,38 @@ def phase_adafactor(seed, dev="cuda"):
              f"{out[dev][2]} / {out['cpu'][2]}")
     if tuple(row.shape) != (3, 3, 32):
         fail(f"adafactor: conv2's row factor {tuple(row.shape)}")
+
+
+# the FEMNIST params are f32: the kernel's update against its plain
+# version's on the card, relative L2 (its elements: tests/
+# test_torch_adafactor_kernel.py's F32_UPDATE_RTOL)
+ADAFACTOR_F32_RTOL = 1e-5
+
+
+def hold_adafactor_step(state, kernel, plain):
+    """A step's (new state, metrics) with the Adafactor kernel against the
+    same step with its plain version, both on the card from ``state``."""
+    (k_new, k_met), (p_new, p_met) = kernel, plain
+    before = {k: v.detach().float().cpu() for k, v in state.params.items()}
+    on_host = {k: v.detach().cpu() for k, v in p_new.params.items()}
+    gaps, worst = update_gaps(before, k_new.params, on_host)
+    rel = 0.0
+    for k, v in p_new.opt_state["v"].items():
+        for part, t in v.items():
+            got = k_new.opt_state["v"][k][part]
+            rel = max(rel, float(((got - t).abs()
+                                  / t.abs().clamp_min(1e-38)).max()))
+    k_loss, p_loss = float(k_met["loss"]), float(p_met["loss"])
+    say("adafactor", f"the kernel against the plain version on the card: "
+        f"loss {k_loss:.6f} / {p_loss:.6f}; update gap in L2: client "
+        f"{gaps['client']:.3e}, server {gaps['server']:.3e}; max |Δparam| "
+        f"{worst:.3e}; state {rel:.3e} relative")
+    if k_loss != p_loss or not max(gaps.values()) <= ADAFACTOR_F32_RTOL \
+            or not rel <= ADAFACTOR_STATE_RTOL:
+        fail(f"adafactor step: the kernel against its plain version on the "
+             f"card: losses {k_loss} / {p_loss}, update gaps {gaps} (want "
+             f"{ADAFACTOR_F32_RTOL}), state {rel} (want "
+             f"{ADAFACTOR_STATE_RTOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -4980,7 +5124,8 @@ def main(argv=None) -> int:
         # LM training through launch/train.py: the main path of this slice
         # (lloyd_update's and pq_quantize's launches in the Llama run), the
         # SSM and MoE runs, and the Mamba2 serve
-        lm_counts, lm_errs, lm_main = phase_lm_train(args.seed)
+        lm_counts, lm_errs, lm_main, lm_adafactor = phase_lm_train(
+            args.seed)
         torch.cuda.empty_cache()
         mark("lm")
         # the production meshes: the Llama run and serve under a 1 x 1 NCCL
@@ -5002,6 +5147,7 @@ def main(argv=None) -> int:
     kernels += time_anyd(gen, anyd_counts, errs)
     kernels += time_mesh(gen, mesh_counts, errs)
     kernels += sharded_entries(kernels, sharded_counts)
+    kernels += time_adafactor(lm_adafactor, args.seed)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

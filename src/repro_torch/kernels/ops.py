@@ -13,6 +13,7 @@ with no f32 copy (on the card, other float dtypes are upcast to f32 first).
 Every input has a leading problem axis P (clients x codebook groups for
 k-means, clients for scalar quantization and packing): the reference
 vmaps one problem per call, the kernels take all of them in one launch.
+``adafactor_update`` takes one optimizer leaf in the reference's layout.
 ``flash_attention`` takes the reference's (B·H, S, hd) layout and
 ``flash_attention_strided`` the projections' (B, S, H, hd) views, both at
 any S: the kernel masks its ragged last tile, so no padded copy is made.
@@ -24,11 +25,15 @@ local``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.adafactor import (adafactor_update_kernel,
+                                           adafactor_update_sharded,
+                                           aligned)
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention_bshd,
                                                  flash_attention_kernel)
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
@@ -122,6 +127,28 @@ def unpack_codes(words: torch.Tensor, count: int, bits: int) -> torch.Tensor:
     _local("unpack_codes", words)
     return unpack_codes_kernel(words.to(torch.int32).contiguous(), count,
                                bits)
+
+
+def adafactor_update(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
+                     beta: float, one_minus: float, lr: float, eps: float,
+                     clip: float):
+    """One leaf's Adafactor update (see ``kernels/adafactor.py``).
+
+    g in the reference's layout, f32 or bf16 on the card; v its second
+    moment (``{"row", "col"}`` or ``{"full"}``, f32). Returns (the update
+    −lr·u in g's dtype, the new v). A view is copied to a contiguous,
+    aligned tensor first. Unlike the other kernels it takes a DTensor: the
+    kernel runs on the local blocks of one on the card, adding its sums
+    over the mesh; one on the CPU (the dry runs on a fake process group)
+    takes the plain version."""
+    kw = dict(beta=beta, one_minus=one_minus, lr=lr, eps=eps, clip=clip)
+    if isinstance(g, DTensor):
+        if g.to_local().is_cuda:
+            return adafactor_update_sharded(g, v, **kw)
+        return ref.adafactor_update_ref(g, v, **kw)
+    _local("adafactor_update", *v.values())
+    return adafactor_update_kernel(
+        aligned(g), {k: t.contiguous() for k, t in v.items()}, **kw)
 
 
 def _forward_only(*ts: torch.Tensor) -> None:

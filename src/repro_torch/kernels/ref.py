@@ -8,7 +8,8 @@ They carry a leading problem axis: ``x`` is ``(..., N, D)``,
 centroid valid), and ``weights`` may be None (every weight 1). The scalar
 quantizer and the packers take ``(P, N)`` values or codes, one range or
 one stream of words per problem. Flash attention takes the kernel's
-``(B·H, S, hd)`` layout.
+``(B·H, S, hd)`` layout. Adafactor's update takes one leaf's gradient in
+the reference's layout and its second moment.
 
 Assignment is written in the score form the kernels compute,
 ``argmax_l (2·x·c_l − ‖c_l‖²)`` -- the argmin of ``‖x − c_l‖²`` without
@@ -19,10 +20,12 @@ never win, and ties going to the first index, as ``jnp.argmax`` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.ctx import like
 
 NEG = -1e30
 
@@ -157,3 +160,34 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         keep &= (pos[:, None] - pos[None, :]) < window
     scores = torch.where(keep, scores, NEG)
     return (torch.softmax(scores, -1) @ vf).to(q.dtype)
+
+
+def adafactor_update_ref(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
+                         beta: float, one_minus: float, lr: float,
+                         eps: float, clip: float):
+    """One leaf's Adafactor update and its new second moment.
+
+    g in the reference's layout, any float dtype; v ``{"row", "col"}`` (a
+    leaf of rank >= 2: f32 means of g² + eps over its last and its second
+    last dim) or ``{"full"}`` (rank <= 1). Returns (−lr·u in g's dtype,
+    the new v), u = g / sqrt(v̂) with its RMS clipped to ``clip``; every
+    operation in f32, each rounded once. Under a mesh g and v may be
+    DTensors: a factor's partial means are reduced into its state's layout
+    (else DTensor may build the outer product below gathered)."""
+    g32 = g.float()
+    g2 = g32.square() + eps
+    if "full" in v:
+        vn = beta * v["full"] + one_minus * g2
+        rms = vn.sqrt()
+        new = {"full": vn}
+    else:
+        row = like(beta * v["row"] + one_minus * g2.mean(-1), v["row"])
+        col = like(beta * v["col"] + one_minus * g2.mean(-2), v["col"])
+        mean = row.mean(-1, keepdim=True)[..., None]
+        rms = (row[..., None] * col[..., None, :]
+               / mean.clamp_min(eps)).sqrt()
+        new = {"row": row, "col": col}
+    u = g32 / rms.clamp_min(eps)
+    urms = (u.square().mean() + eps).sqrt()
+    u = u / (urms / clip).clamp_min(1.0)
+    return (u * -lr).to(g.dtype), new

@@ -26,8 +26,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor import zeros as dtensor_zeros
 
+from repro_torch.kernels import ops
 from repro_torch.models.layout import inverse, ref_axes
-from repro_torch.sharding.ctx import like
 
 Schedule = Callable[[int], float]
 Tensors = Dict[str, torch.Tensor]
@@ -187,28 +187,10 @@ def adafactor(lr, eps: float = 1e-30,
         lr_t = sched(step - 1)
         upd, new_v = {}, {}
         for k, g in grads.items():
-            v = state["v"][k]
-            g32 = in_ref(k, g.float())
-            g2 = g32.square() + eps
-            if "full" in v:
-                vn = beta * v["full"] + one_minus * g2
-                rms = vn.sqrt()
-                new_v[k] = {"full": vn}
-            else:
-                # a factor's partial means reduced into its state's layout
-                # (else DTensor may build the outer product below gathered)
-                row = like(beta * v["row"] + one_minus * g2.mean(-1),
-                           v["row"])
-                col = like(beta * v["col"] + one_minus * g2.mean(-2),
-                           v["col"])
-                mean = row.mean(-1, keepdim=True)[..., None]
-                rms = (row[..., None] * col[..., None, :]
-                       / mean.clamp_min(eps)).sqrt()
-                new_v[k] = {"row": row, "col": col}
-            u = g32 / rms.clamp_min(eps)
-            urms = (u.square().mean() + eps).sqrt()
-            u = from_ref(k, u / (urms / clip_threshold).clamp_min(1.0))
-            upd[k] = (u * -lr_t).to(g.dtype)
+            u, new_v[k] = ops.adafactor_update(
+                in_ref(k, g), state["v"][k], beta=beta, one_minus=one_minus,
+                lr=lr_t, eps=eps, clip=clip_threshold)
+            upd[k] = from_ref(k, u)
         return upd, {"step": step, "v": new_v}
 
     return Optimizer(init, update, "adafactor")
