@@ -6,7 +6,9 @@ Every architecture the port runs has a ``configs/<id>.py`` exporting
 variant of the same family, for the CPU tests). The fields, their defaults
 and the derived properties are the reference's, value for value;
 ``compute_dtype`` returns a ``torch.dtype``. ``get_arch`` resolves every
-id of ``ARCH_IDS``.
+id of ``ARCH_IDS``, and the port's own ids (``PORT_ARCH_IDS``: models the
+reference does not list), whose configs are ``PortArchConfig``: the
+reference's fields and the port-only ones after them.
 """
 
 from __future__ import annotations
@@ -79,6 +81,18 @@ class ArchConfig:
     train_microbatches: int = 1       # in-step gradient accumulation
     optimizer: str = "adam"           # default training optimizer
     source: str = ""                  # citation
+
+    # the port-only knobs at the values that change nothing: fields of
+    # ``PortArchConfig`` only, so ArchConfig's fields stay the reference's
+    shared_d_ff = 0
+    experts_held = 0
+    first_expert_held = 0
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    logits_scaling = 1.0
+    attention_multiplier = None
+    position_embedding = "rope"
+    ssm_decay_f32 = False
 
     # ---- derived -----------------------------------------------------------
     def __post_init__(self):
@@ -157,6 +171,64 @@ class ArchConfig:
         return n
 
 
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An ``ArchConfig`` with the port-only fields, whose defaults change
+    nothing (the twinned configs run exactly as they would without them).
+
+    * ``shared_d_ff``: a SwiGLU shared expert of this width beside every
+      MoE layer's routed experts (0: none);
+    * ``experts_held`` / ``first_expert_held``: this chip's share of each
+      MoE layer under expert parallelism, the experts
+      [first, first + held) (0: all). The router keeps its
+      ``num_experts`` outputs and top-k over all of them, the capacity is
+      the whole layer's; only the pairs routed to the held experts are
+      computed;
+    * ``embedding_multiplier`` (the embedding times it),
+      ``residual_multiplier`` (each sublayer's output times it before
+      the residual add), ``logits_scaling`` (the logits divided by it);
+    * ``attention_multiplier``: the score scale (None: 1/√head_dim);
+      ``position_embedding``: "rope", or "nope" for no rotary;
+    * ``ssm_decay_f32``: the SSD's decay (dt·A, its cumulative sums and
+      exponentials) and the carried state in f32 whatever the stream's
+      dtype, as mamba_ssm's kernels keep them; off, the decay takes the
+      stream's dtype, as the reference's scan does.
+    """
+    shared_d_ff: int = 0
+    experts_held: int = 0
+    first_expert_held: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: Optional[float] = None
+    position_embedding: str = "rope"          # rope | nope
+    ssm_decay_f32: bool = False
+
+    def __post_init__(self):
+        # a pattern read from JSON is a list: the same pattern as a tuple
+        object.__setattr__(self, "layer_pattern", tuple(self.layer_pattern))
+        super().__post_init__()
+        held = self.experts_held or self.num_experts
+        if not 0 <= self.first_expert_held <= self.num_experts - held:
+            raise ValueError(f"{self.name}: experts [{self.first_expert_held}"
+                             f", +{held}) are not among {self.num_experts}")
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"{self.name}: position_embedding "
+                             f"{self.position_embedding!r}")
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's count with the held experts in place of all
+        (top-k of them where ``active_only``) and the shared experts."""
+        n = super().param_count(active_only)
+        per = (3 if self.mlp_type in ("swiglu", "geglu") else 2) \
+            * self.d_model
+        moe_layers = sum(self.is_moe_layer(i) for i in range(self.num_layers))
+        if self.experts_held and not active_only:
+            n -= moe_layers * (self.num_experts - self.experts_held) \
+                * per * self.d_ff
+        return n + moe_layers * per * self.shared_d_ff
+
+
 # ----------------------------------------------------------------------------
 # input shapes
 # ----------------------------------------------------------------------------
@@ -190,6 +262,11 @@ ARCH_IDS = [
     "command_r_35b",
 ]
 
+# the port's own architectures: no twin in the reference's ARCH_IDS
+PORT_ARCH_IDS = [
+    "granite_4p0_h_small",
+]
+
 
 # archs whose long_500k decode runs: sub-quadratic attention or state
 LONG_CONTEXT_CAPABLE = {
@@ -210,9 +287,9 @@ def supports_shape(arch_name: str, shape_name: str) -> bool:
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
     """Load an architecture config by id (also accepts '-' for '_')."""
     arch_id = arch_id.replace("-", "_")
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; known: "
-                         f"{', '.join(ARCH_IDS)}")
+                         f"{', '.join(ARCH_IDS + PORT_ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 

@@ -27,7 +27,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_arch
+from repro_torch.configs.base import (ARCH_IDS, PORT_ARCH_IDS, ArchConfig,
+                                      get_arch)
 from repro_torch.launch.mesh import MeshTooSmall
 from repro_torch.launch.specs import (distribute_batch, distribute_caches,
                                       make_model)
@@ -43,7 +44,8 @@ def _sync(device: torch.device) -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -41,7 +41,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpointing import (latest_step, restore_checkpoint,
                                        save_checkpoint)
-from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_arch
+from repro_torch.configs.base import (ARCH_IDS, PORT_ARCH_IDS, ArchConfig,
+                                      get_arch)
 from repro_torch.core.fedlite import (TrainState, comm_report, flat_params,
                                       make_train_step, nest_like)
 from repro_torch.data.synthetic import make_lm_batch
@@ -57,7 +58,8 @@ Batch = Dict[str, torch.Tensor]
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)

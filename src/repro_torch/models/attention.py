@@ -27,7 +27,9 @@ not the whole cache.
 
 ``positions=None`` means every row sits at 0..S−1, the reference's default
 positions; only then can the prefill take the flash kernel, which masks by
-index.
+index. A config may set no rotary (``position_embedding="nope"``) and its
+own score scale (``attention_multiplier``; 1/√head_dim by default), on
+every path.
 
 Under a ``("data", "model")`` mesh (``sharding/ctx.py``) the projections
 are DTensor products, and the attention itself -- the four paths and the
@@ -77,8 +79,9 @@ def attn_init(generator: Optional[torch.Generator], cfg, dtype: torch.dtype,
     return p
 
 
-def _project(p, x: torch.Tensor, cfg, angles: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Kv,hd) with RoPE applied."""
+def _project(p, x: torch.Tensor, cfg, angles: Optional[torch.Tensor]):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Kv,hd) with RoPE applied
+    (none where ``angles`` is None)."""
     B, S, _ = x.shape
     q = x @ ctx.gathered(p["wq"])
     k = x @ ctx.gathered(p["wk"])
@@ -94,6 +97,8 @@ def _project(p, x: torch.Tensor, cfg, angles: torch.Tensor):
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if angles is None:
+        return q, k, v
     return apply_rope(q, angles), apply_rope(k, angles), v
 
 
@@ -299,15 +304,15 @@ def apply_attention(p, x: torch.Tensor, cfg,
     if cache is None and mode != "train" or \
             decode_pos is None and mode == "decode":
         raise ValueError(f"{mode} needs a cache (and decode a decode_pos)")
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scale = cfg.attention_multiplier or 1.0 / math.sqrt(cfg.head_dim)
     B, S = x.shape[:2]
     default = positions is None
     if default:
         positions = default_positions(
             B, S, x.device, cfg.mrope_sections is not None,
             start=decode_pos if mode == "decode" else 0)
-    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta,
-                         cfg.mrope_sections)
+    angles = None if cfg.position_embedding == "nope" else rope_angles(
+        positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
     # the sequence-sharded residual gathered into the projections
     q, k, v = _project(p, ctx.shard(x, ctx.BATCH, None, None), cfg, angles)
     # token positions along the sequence (1D; batch-uniform by construction)

@@ -28,6 +28,28 @@ Routing is the reference's, choice for choice:
     kept destination is unique, so no sum over an atomic ``index_add_``
     whose order could vary), the combine one gather per choice;
   * the Switch load-balance loss is taken over all tokens.
+
+Expert parallelism by configuration (``cfg.experts_held``, a
+``PortArchConfig`` field): a layer told that it holds the experts
+[``first_expert_held``, + ``experts_held``) routes over all
+``num_experts`` with the whole layer's capacity and computes only the
+pairs routed to its own experts; the others are dropped here, as a pair
+past the capacity is. What it returns is its experts' part of the
+layer's output: the shares of disjoint held sets that cover the experts
+sum to the whole layer's. Most pairs are then dropped (three in four with
+a quarter of the experts held), so they go to ``DUMP_ROWS`` dump rows,
+spread by the pair's index, and not to one: the combine's gather then
+meets no index repeated hundreds of thousands of times, whose backward
+(a sorted accumulation, one index segment at a time) would run them one
+after another. Such a layer ranks the pairs by a stable sort of their
+experts, where the twinned configs take the one-hot running count: the
+same ranks, without a scan of Ng·k rows over E columns (126 ms a layer of
+72 experts at 32768 tokens on the H100, one launch).
+
+Spans (``repro_torch.obs``): ``moe.route`` (the router, top-k, the slots
+and the balance loss), ``moe.dispatch`` (the scatter), ``moe.experts``
+(the expert products), ``moe.combine`` (the gathers), with k, the
+capacity and the experts held as their args.
 """
 
 from __future__ import annotations
@@ -38,17 +60,22 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding import ctx
 
 Params = Dict[str, torch.Tensor]
 
+# dump rows of a layer that holds a share of the experts
+DUMP_ROWS = 1024
+
 
 def moe_init(generator: Optional[torch.Generator], cfg, dtype: torch.dtype,
              *, device="cuda") -> Params:
-    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    p = {"router": dense_init(generator, D, E, torch.float32,
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = {"router": dense_init(generator, D, cfg.num_experts, torch.float32,
                               device=device)}
+    E = cfg.experts_held or cfg.num_experts
     if cfg.mlp_type in ("swiglu", "geglu"):
         p["we_gate"] = _expert_init(generator, E, D, Fd, dtype, device)
     p["we_up"] = _expert_init(generator, E, D, Fd, dtype, device)
@@ -108,17 +135,42 @@ def capacity_of(cfg, tokens_per_group: int) -> int:
     return max(8, -(-capacity // 8) * 8)
 
 
-def dispatch_slots(gate_idx: torch.Tensor, num_experts: int, capacity: int):
+def _ranks(flat: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """flat (G, M) expert ids -> each pair's rank among the pairs of its
+    group routed to the same expert, in row-major order: its place in a
+    stable sort by expert less the place where its expert's run starts."""
+    order = torch.argsort(flat, dim=1, stable=True)
+    counts = torch.zeros((flat.shape[0], num_experts), dtype=flat.dtype,
+                         device=flat.device).scatter_add_(
+        1, flat, torch.ones_like(flat))
+    starts = counts.cumsum(1) - counts
+    ranked = torch.arange(flat.shape[1], device=flat.device) \
+        - starts.gather(1, flat.gather(1, order))
+    return torch.empty_like(flat).scatter_(1, order, ranked)
+
+
+def dispatch_slots(gate_idx: torch.Tensor, num_experts: int, capacity: int,
+                   held: int = 0, first: int = 0):
     """gate_idx (G, Ng, k) -> (dest (G, Ng, k), keep (G, Ng, k)): each
-    pair's row in the (E·capacity + 1)-row buffer, E·capacity (the dump
-    row) for a dropped pair."""
+    pair's row in the buffer of the H = ``held`` experts from ``first``
+    (0: all E), H·capacity rows and then the dump rows (one, or
+    ``DUMP_ROWS`` where a share is held), a dump row for a dropped pair
+    or one routed to an expert not held."""
     G, Ng, k = gate_idx.shape
     flat = gate_idx.reshape(G, Ng * k)
-    onehot = F.one_hot(flat, num_experts)
-    pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1)
-    keep = pos < capacity
-    dest = torch.where(keep, flat * capacity + pos,
-                       num_experts * capacity)
+    if not held or held == num_experts:
+        onehot = F.one_hot(flat, num_experts)
+        pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1)
+        keep = pos < capacity
+        dest = torch.where(keep, flat * capacity + pos,
+                           num_experts * capacity)
+        return dest.reshape(G, Ng, k), keep.reshape(G, Ng, k)
+    pos = _ranks(flat, num_experts)
+    flat = flat - first
+    keep = (pos < capacity) & (flat >= 0) & (flat < held)
+    dump = held * capacity + torch.arange(Ng * k, device=flat.device) \
+        % DUMP_ROWS
+    dest = torch.where(keep, flat * capacity + pos, dump)
     return dest.reshape(G, Ng, k), keep.reshape(G, Ng, k)
 
 
@@ -126,13 +178,17 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
     """x: (B, S, D) -> (y, aux_loss). Grouped top-k routing with capacity."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
+    # the experts computed here: all, or this chip's share
+    H = cfg.experts_held or E
+    dump = 1 if H == E else DUMP_ROWS
     G = _num_groups(B)
     Ng = B * S // G
     xg = ctx.shard(x, ctx.BATCH, None, None).reshape(G, Ng, D)
 
     capacity = capacity_of(cfg, Ng)
     groups = ctx.P(ctx.batch_entry(G) if G > 1 else None, None, None)
-    buf_spec, hid_spec = _buffer_specs(E)
+    buf_spec, hid_spec = _buffer_specs(H)
+    args = {"k": k, "capacity": capacity, "experts_held": H}
 
     def route(xg, router):
         logits = xg.float() @ router                           # (G, Ng, E)
@@ -140,29 +196,32 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
         gate_w, gate_idx = top_k(probs, k)                     # (G, Ng, k)
         gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
         chosen = F.one_hot(gate_idx, E).float().sum(2)         # (G, Ng, E)
-        dest, keep = dispatch_slots(gate_idx, E, capacity)
+        dest, keep = dispatch_slots(gate_idx, E, capacity, H,
+                                    cfg.first_expert_held)
         return probs, gate_w, chosen, dest, keep
 
-    # the router (its weight gathered) and the routing of each rank's
-    # groups on its block
-    probs, gate_w, chosen, dest, keep = ctx.local(
-        route, (groups,) * 5, (groups, ctx.P()))(xg, p["router"])
+    with obs.span("moe.route", cat="moe", **args):
+        # the router (its weight gathered) and the routing of each rank's
+        # groups on its block
+        probs, gate_w, chosen, dest, keep = ctx.local(
+            route, (groups,) * 5, (groups, ctx.P()))(xg, p["router"])
 
-    # load-balance auxiliary loss (Switch-style), over ALL tokens
-    me = probs.mean((0, 1))                                    # (E,)
-    ce = chosen.mean((0, 1))
-    aux = E * (me * ce).sum() * cfg.router_aux_weight
+        # load-balance auxiliary loss (Switch-style), over ALL tokens
+        me = probs.mean((0, 1))                                # (E,)
+        ce = chosen.mean((0, 1))
+        aux = E * (me * ce).sum() * cfg.router_aux_weight
 
     def scatter(xg, dest):
         g = torch.arange(xg.shape[0], device=xg.device)[:, None]
-        buf = xg.new_zeros((xg.shape[0], E * capacity + 1, D))
+        buf = xg.new_zeros((xg.shape[0], H * capacity + dump, D))
         for j in range(k):    # one choice at a time: no (Ng·k, D) buffer
             buf.index_put_((g, dest[:, :, j]), xg)
-        return buf[:, :-1].reshape(xg.shape[0], E, capacity, D)
+        return buf[:, :-dump].reshape(xg.shape[0], H, capacity, D)
 
-    ebuf = ctx.local(scatter, ctx.P(*groups, None), (groups, groups))(
-        xg, dest)
-    ebuf = ctx.shard(ebuf, *buf_spec)                          # (G,E,C,D)
+    with obs.span("moe.dispatch", cat="moe", **args):
+        ebuf = ctx.local(scatter, ctx.P(*groups, None), (groups, groups))(
+            xg, dest)
+        ebuf = ctx.shard(ebuf, *buf_spec)                      # (G,H,C,D)
 
     def experts(ebuf, we_gate, we_up, we_down):
         if we_gate is not None:
@@ -180,9 +239,9 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
     # and experts; else TP in each expert, each rank's groups and slice of
     # d_ff, the down projection's output a partial sum over "model"
     # (reduced by the constraint after it)
-    if E % max(ctx.axis_size("model"), 1) == 0:
-        bspec = ctx.P(groups[0], ctx.model_entry(E), None, None)
-        w_up = w_down = ctx.P(ctx.model_entry(E), None, None)
+    if H % max(ctx.axis_size("model"), 1) == 0:
+        bspec = ctx.P(groups[0], ctx.model_entry(H), None, None)
+        w_up = w_down = ctx.P(ctx.model_entry(H), None, None)
         out = bspec
     else:
         f = ctx.model_entry(cfg.d_ff)
@@ -190,22 +249,25 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
         w_up, w_down = ctx.P(None, None, f), ctx.P(None, f, None)
         out = ctx.Sum(bspec, f)
     gated = "we_gate" in p
-    out_buf = ctx.local(experts, out, (bspec, w_up if gated else None, w_up,
-                                       w_down))(
-        ebuf, p.get("we_gate"), p["we_up"], p["we_down"])
-    out_buf = ctx.shard(out_buf, *buf_spec)
+    with obs.span("moe.experts", cat="moe", **args):
+        out_buf = ctx.local(experts, out, (bspec, w_up if gated else None,
+                                           w_up, w_down))(
+            ebuf, p.get("we_gate"), p["we_up"], p["we_down"])
+        out_buf = ctx.shard(out_buf, *buf_spec)
 
     def combine(out_buf, dest, gate_w, keep):
         Gl = out_buf.shape[0]
         g = torch.arange(Gl, device=out_buf.device)[:, None]
-        padded = torch.cat([out_buf.reshape(Gl, E * capacity, D),
-                            out_buf.new_zeros((Gl, 1, D))], dim=1)
+        padded = torch.cat([out_buf.reshape(Gl, H * capacity, D),
+                            out_buf.new_zeros((Gl, dump, D))], dim=1)
         y = out_buf.new_zeros((Gl, Ng, D))
         for j in range(k):    # one gather per choice
             wj = (gate_w[:, :, j] * keep[:, :, j]).to(out_buf.dtype)
             y = y + padded[g, dest[:, :, j]] * wj[:, :, None]
         return y
 
-    y = ctx.local(combine, groups, (ctx.P(*groups, None),) + (groups,) * 3)(
-        out_buf, dest, gate_w, keep)
+    with obs.span("moe.combine", cat="moe", **args):
+        y = ctx.local(combine, groups,
+                      (ctx.P(*groups, None),) + (groups,) * 3)(
+            out_buf, dest, gate_w, keep)
     return ctx.shard_residual(y.reshape(B, S, D)), aux

@@ -4,7 +4,9 @@
 A model is a repeated *period* of blocks (``cfg.layer_pattern``): dense
 archs have the period ("attn",), jamba an 8-block mamba / attention
 interleave; MoE FFNs replace dense FFNs on the positions selected by
-(moe_period, moe_offset). Weights of each position in the period are
+(moe_period, moe_offset), with a shared expert beside them where
+``cfg.shared_d_ff`` is set (its own ``shared`` leaves, on the MoE's normed
+input; a ``moe.shared`` span). Weights of each position in the period are
 stacked over periods (a leading axis of every leaf, the reference's layout)
 and the periods run in a Python loop where the reference scans. In
 training with ``cfg.remat`` each period is rematerialized in the backward
@@ -31,6 +33,12 @@ corrected backward -> server -> cross-entropy plus the MoE balance loss);
 ``chunked_ce`` takes the CE over chunks of 512 positions, each chunk's
 logits rematerialized in the backward pass.
 
+Granite's multipliers (``PortArchConfig``): the embedding times
+``embedding_multiplier``, each sublayer's output times
+``residual_multiplier`` before its residual add, the logits (in
+``logits``, so the CE and serving alike) divided by ``logits_scaling``;
+at their defaults no operation is added.
+
 Serving: ``prefill`` runs the prompt (its attention through the flash
 kernel, see ``models/attention.py``), compresses the cut with the paper's
 PQ when ``quantize=True`` (the two PQ kernels on a card), fills the KV and
@@ -49,6 +57,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compressors import (CutCompressor, CutState,
                                           PQCompressor, compress_downlink,
@@ -173,6 +182,10 @@ class TransformerLM:
                 if self._pos_is_moe(pos):
                     lp["ffn"] = moe_mod.moe_init(generator, cfg, dtype,
                                                  device=device)
+                    if cfg.shared_d_ff:
+                        lp["shared"] = mlp_init(
+                            generator, cfg.d_model, cfg.shared_d_ff,
+                            cfg.mlp_type, False, dtype, device=device)
                 elif cfg.d_ff:
                     lp["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
                                          cfg.mlp_type, cfg.use_bias, dtype,
@@ -205,6 +218,8 @@ class TransformerLM:
             x = F.embedding(tokens, emb)
         if cfg.scale_embed:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        if cfg.embedding_multiplier != 1.0:
+            x = x * cfg.embedding_multiplier
         if cfg.vision_embed_dim and "vision_embeds" in batch:
             vis = batch["vision_embeds"].to(x.dtype) \
                 @ client_params["vision_proj"]
@@ -232,6 +247,11 @@ class TransformerLM:
         def run(fn, *args):
             return _remat(fn, *args) if inner else fn(*args)
 
+        def residual(y):
+            """A sublayer's output as its residual add takes it."""
+            rm = cfg.residual_multiplier
+            return y if rm == 1.0 else y * rm
+
         for pos in range(cfg.period):
             lp = pp[f"p{pos}"]
             cache = caches[f"p{pos}"] if caches is not None else None
@@ -239,15 +259,15 @@ class TransformerLM:
                 def mixer_fn(lp_, x_):
                     h = apply_norm(lp_["ln1"], x_, cfg.norm_type,
                                    cfg.norm_eps)
-                    return attn_mod.apply_attention(
+                    return residual(attn_mod.apply_attention(
                         lp_["mixer"], h, cfg, positions, mode=mode,
-                        cache=cache, decode_pos=decode_pos)[0]
+                        cache=cache, decode_pos=decode_pos)[0])
             else:
                 def mixer_fn(lp_, x_):
                     h = apply_norm(lp_["ln1"], x_, cfg.norm_type,
                                    cfg.norm_eps)
-                    return ssm_mod.apply_ssm(lp_["mixer"], h, cfg,
-                                             mode=mode, cache=cache)[0]
+                    return residual(ssm_mod.apply_ssm(
+                        lp_["mixer"], h, cfg, mode=mode, cache=cache)[0])
             x = x + run(mixer_fn, lp, x)
             if "ffn" not in lp:
                 continue
@@ -255,14 +275,20 @@ class TransformerLM:
                 def ffn_fn(lp_, x_):
                     h = apply_norm(lp_["ln2"], x_, cfg.norm_type,
                                    cfg.norm_eps)
-                    return moe_mod.apply_moe(lp_["ffn"], h, cfg)
+                    y, a = moe_mod.apply_moe(lp_["ffn"], h, cfg)
+                    if "shared" in lp_:
+                        with obs.span("moe.shared", cat="moe",
+                                      width=cfg.shared_d_ff):
+                            y = y + apply_mlp(lp_["shared"], h,
+                                              cfg.mlp_type)
+                    return residual(y), a
                 y, a = run(ffn_fn, lp, x)
                 aux = aux + a
             else:
                 def ffn_fn(lp_, x_):
                     h = apply_norm(lp_["ln2"], x_, cfg.norm_type,
                                    cfg.norm_eps)
-                    return apply_mlp(lp_["ffn"], h, cfg.mlp_type)
+                    return residual(apply_mlp(lp_["ffn"], h, cfg.mlp_type))
                 y = run(ffn_fn, lp, x)
             x = x + y
         return x, aux
@@ -439,6 +465,8 @@ class TransformerLM:
                 x, head.to(x.dtype)).float()
         else:
             out = (x @ head.to(x.dtype)).float()
+        if self.cfg.logits_scaling != 1.0:
+            out = out / self.cfg.logits_scaling
         return ctx.shard(out, ctx.BATCH, None, "model")
 
     # ------------------------------------------------------------- losses

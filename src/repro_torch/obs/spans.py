@@ -24,7 +24,15 @@ path without taxing uninstrumented runs. The spans that exist:
     (``core/kmeans.py``);
   * ``wire.*`` — the wire codec (``federated/wire.py``);
     ``checkpoint.save`` / ``checkpoint.restore`` / ``recovery.snapshot`` —
-    checkpoint I/O.
+    checkpoint I/O;
+  * ``ssm.scan`` — an ``ssd_scan`` call, its chunk loop (``models/ssm.py``;
+    args: chunks, chunk);
+  * ``moe.route`` / ``moe.dispatch`` / ``moe.experts`` / ``moe.combine`` —
+    an MoE layer's router and slots, its scatter, its expert products and
+    its gathers (``models/moe.py``; args: k, capacity, experts held), and
+    ``moe.shared`` — the shared expert beside it
+    (``models/transformer.py``; args: width). Under rematerialization a
+    recomputed forward opens them again.
 
 Three time lanes:
 
