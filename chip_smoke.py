@@ -163,9 +163,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                 pq_quantize against their plain versions on the cut,
                 codes, z̃, loss), exact launch counts (4 + 1 a step) and
                 routes, falling losses, the step time, tokens/s, peak
-                memory and busy share; then launch/serve.py on
-                Mamba2-1.3B (4 x 2048 prompt, 16 decode steps) and its
-                SSM cache handoff against the forward;
+                memory and busy share; one step of Granite-4.0-H-Small
+                at the benchmark cell's cut (20 layers, 18 of 72 experts
+                held) on the SSD kernels, their launches counted (3
+                forwards and a backward an SSM layer); then
+                launch/serve.py on Mamba2-1.3B (4 x 2048 prompt, 16
+                decode steps) and its SSM cache handoff against the
+                forward;
   8c. sharded -- the production ("data", "model") meshes over DTensor:
                 the lm phase's Llama-3 8B run (6 layers, 8 steps) and the
                 Llama-3 8B serve (4 x 2048, 32 steps) through train(...,
@@ -211,7 +215,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                 the whole tensor); the Adafactor kernel at the Mixtral
                 cell's expert stack and embedding, bf16, held to its plain
                 version on the card (the state within 1e-5 relative, the
-                update within one bf16 ulp and exact on 99.5 %);
+                update within one bf16 ulp and exact on 99.5 %); the SSD
+                scan's kernels at Granite's shape (8 x 4096, 128 heads of
+                64, state 128, chunk 256), forward and backward beside the
+                plain chunk loop's, y, the final state and the gradients
+                of x, dt, A, B and C each no further from the f32 plain
+                route than the bf16 plain route is, and its launches
+                counted in one Granite training step (lm_ssd_step);
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -416,6 +426,12 @@ LM_CE_SLACK = 1.5
 # layers, at SSM_HANDOFF_F32 (relative L2 of the logits)
 SSM_SERVE_B, SSM_SERVE_P, SSM_SERVE_GEN = 4, 2048, 16
 SSM_HANDOFF_F32 = 1e-3
+# one launch/train.py step of Granite-4.0-H-Small at the benchmark cell's
+# cut (20 layers, 18 of them Mamba-2, 18 of 72 experts held) on LM_B x
+# LM_S tokens: the SSD's kernel route as the cell runs it. Under the
+# period and block remat each SSM layer runs its scan forward 3 times a
+# step and its backward once
+LM_SSD_LAYERS, LM_SSD_EXPERTS_HELD, LM_SSD_FORWARDS = 20, 18, 3
 
 
 def fail(msg: str):
@@ -503,7 +519,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = ["lloyd_update", "pq_quantize", "kmeans_assign", "scalar_quant",
-            "flash_attention", "adafactor"]
+            "flash_attention", "adafactor", "ssd_scan"]
     infos = _build.build(libs)
     for name, info in infos.items():
         say("build", f"{name}: {info.path.name} in {info.seconds:.1f} s")
@@ -3515,10 +3531,12 @@ def phase_lm_train(seed, dev="cuda"):
     step-1 loss of the run equal to the hold's within LM_LOSS_RTOL, the
     step time (median of steps 2..N−1, host clock with a synchronize),
     tokens/s, peak memory and the busy share of the profiled last step.
-    Then the serve of Mamba2-1.3B (phase_ssm_serve). Returns (the main
-    run's launch counts, the kernels' max |err| at the three cuts, the
-    main run's losses, final params on the host and step time, the
-    Adafactor kernel's launches in the MoE run)."""
+    Then one Granite step on the SSD kernels (lm_ssd_step) and the serve
+    of Mamba2-1.3B (phase_ssm_serve). Returns (the main run's launch
+    counts, the kernels' max |err| at the three cuts, the main run's
+    losses, final params on the host and step time, the Adafactor kernel's
+    launches in the MoE run, the SSD kernels' launches in the Granite
+    step)."""
     import math
     from repro_torch.core.fedlite import flat_params
     from repro_torch.launch.specs import make_model
@@ -3574,8 +3592,56 @@ def phase_lm_train(seed, dev="cuda"):
         adafactor_launches += counts.get("adafactor_update", 0)
         del hist
         torch.cuda.empty_cache()
+    ssd_counts = lm_ssd_step(seed, dev)
+    torch.cuda.empty_cache()
     phase_ssm_serve(seed, dev)
-    return main_counts, errs, main_run, adafactor_launches
+    return main_counts, errs, main_run, adafactor_launches, ssd_counts
+
+
+def lm_ssd_step(seed, dev="cuda"):
+    """One training step of Granite-4.0-H-Small at the benchmark cell's
+    cut (LM_SSD_LAYERS layers, LM_SSD_EXPERTS_HELD experts held; x, B
+    and C bf16, dt and A f32, 128 heads of 64, state 128, chunk 256)
+    through launch/train.py: ``apply_ssm`` -> ``ssm.ssd_scan`` ->
+    ``ops.ssd_scan``, B and C sliced from one conv output. The launch
+    counts are reset just before it: LM_SSD_FORWARDS ``ssd_scan`` and one
+    ``ssd_scan_bwd`` an SSM layer, or the step missed the kernel route.
+    Returns the SSD kernels' launch counts."""
+    import dataclasses
+    import math
+    from repro_torch.configs import granite_4p0_h_small as granite
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(granite.CONFIG, num_layers=LM_SSD_LAYERS,
+                              experts_held=LM_SSD_EXPERTS_HELD)
+    n_ssm = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "ssm"
+                for i in range(cfg.num_layers))
+    argv = ["--arch", cfg.name, "--steps", "1", "--batch", str(LM_B),
+            "--seq", str(LM_S), "--device", str(dev), "--seed", str(seed)]
+    lines = []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train.train(cfg, train.parse_args(argv), log=lines.append)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    del state
+    ssd = {k: counts.get(k, 0) for k in ("ssd_scan", "ssd_scan_bwd")}
+    want = {"ssd_scan": LM_SSD_FORWARDS * n_ssm, "ssd_scan_bwd": n_ssm}
+    loss = float(hist[0]["loss"])
+    say("lm", f"SSD: {cfg.name} at {cfg.num_layers} layers ({n_ssm} "
+        f"Mamba-2), {cfg.experts_held} of {cfg.num_experts} experts held, "
+        f"chunk {cfg.ssm_chunk}, state {cfg.ssm_state}, decay f32 "
+        f"{cfg.ssm_decay_f32}; one step of {LM_B} x {LM_S} tokens in "
+        f"{step_s:.1f} s (init and first-call costs included), loss "
+        f"{loss:.4f}; SSD launches {ssd} (want {want}); all launches "
+        f"{counts}")
+    if ssd != want:
+        fail(f"lm SSD: SSD kernel launches {ssd} != {want}")
+    if not math.isfinite(loss):
+        fail(f"lm SSD: loss {loss} not finite")
+    return ssd
 
 
 # the production meshes' machinery (phase_sharded): the lm phase's Llama-3
@@ -4135,6 +4201,100 @@ def time_adafactor(launches, seed):
         del g, v
         torch.cuda.empty_cache()
     return kernels
+
+
+SSD_NAMES = ("y", "h", "dx", "ddt", "dA", "dB", "dC")
+
+
+def time_ssd_scan(lm_counts, seed):
+    """The SSD scan's kernels at Granite's shape (8 x 4096 tokens, 128
+    heads of 64, state 128, chunk 256; x, B, C bf16, dt and A f32; B and C
+    the halves of one tensor): the forward (no grad) and the backward
+    (autograd.grad on one forward's graph), each beside the plain route's,
+    with the launches read around one forward and backward. Bound: each
+    input read once and each output written once at 3.35 TB/s, against
+    the chunked products (as ``fedbench/counts/hybrid_lm.
+    ssd_flops_per_sequence``; the backward twice the forward's) at 989
+    TFLOP/s. Held, as the card tests hold them: y, the final state and
+    the gradients of x, dt, A, B and C (the loss on y alone, as in a
+    training step), each within the plain bf16 route's relative L2 gap to
+    the plain route in f32 from the same inputs. The entry's launches are
+    the Granite step's (``lm_counts``, lm_ssd_step)."""
+    from repro_torch.kernels import _build, ops, ref
+
+    dev = torch.device("cuda")
+    B, S, H, P, N, Cs = 8, 4096, 128, 64, 128, 256
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    BF16 = torch.bfloat16
+    xh = torch.randn((B, S, H, P), generator=gen, device=dev).to(BF16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=dev) * 0.5 - 2.0)
+    A = -torch.exp(torch.empty(H, device=dev).uniform_(-0.7, 2.1,
+                                                       generator=gen))
+    bc = torch.randn((B, S, 2 * N), generator=gen, device=dev).to(BF16)
+    dy = torch.randn((B, S, H, P), generator=gen, device=dev).to(BF16)
+    ins = (xh, dt, A, bc[..., :N], bc[..., N:])
+    if ops.ssd_scan_route(*ins, Cs) != "kernel":
+        fail("ssd_scan: Granite's inputs do not take the kernel route")
+
+    def outputs(fn, inputs, cot):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        y, h = fn(*leaves, Cs)
+        grads = torch.autograd.grad(y, leaves, cot, retain_graph=True)
+        return y, h, leaves, [y.detach().float(), h.detach().float()] \
+            + [g.float() for g in grads]
+
+    res = {}
+    for route, fn in (("kernel", ops.ssd_scan), ("plain", ref.ssd_scan_ref)):
+        with torch.no_grad():
+            f_ms = eager_ms(lambda: fn(*ins, Cs), calls=5)
+        _build.reset_launch_counts()
+        y, _, leaves, vals = outputs(fn, ins, dy)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        b_ms = eager_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                    retain_graph=True),
+                        calls=3)
+        res[route] = (f_ms, b_ms, vals, counts)
+        del y, leaves
+        torch.cuda.empty_cache()
+    f32 = outputs(ref.ssd_scan_ref, [t.float() for t in ins],
+                  dy.float())[3]
+    torch.cuda.empty_cache()
+    (f_ms, b_ms, got, counts), (pf_ms, pb_ms, plain, _) = \
+        res["kernel"], res["plain"]
+    gaps = {n: (rel_l2(k, w), rel_l2(p, w), rel_l2(k, p))
+            for n, k, p, w in zip(SSD_NAMES, got, plain, f32)}
+    err = float((got[0] - plain[0]).abs().max())
+    pairs = (S // Cs) * Cs * (Cs + 1) // 2     # causal (i, j) pairs
+    flops = B * (2 * pairs * (N + H * P) + 4 * S * H * N * P)
+    f_bytes = 2 * B * S * H * P * 2 + B * S * H * 4 + 2 * B * S * N * 2 \
+        + B * H * P * N * 4
+    b_bytes = 3 * B * S * H * P * 2 + 2 * B * S * H * 4 + 4 * B * S * N * 2
+    fb_ms, fb_by = bound(f_bytes, flops, BF16_TC_FLOP_PER_S)
+    bb_ms, bb_by = bound(b_bytes, 2 * flops, BF16_TC_FLOP_PER_S)
+    shown = ", ".join(f"{n} {k:.3e} / {p:.3e} ({kp:.3e})"
+                      for n, (k, p, kp) in gaps.items())
+    say("times", f"ssd_scan at Granite's shape {(B, S, H, P, N)} chunk {Cs}: "
+        f"forward {f_ms:.3f} ms (plain {pf_ms:.3f}; bound {fb_ms:.3f} ms by "
+        f"{fb_by}), backward {b_ms:.3f} ms (plain {pb_ms:.3f}; bound "
+        f"{bb_ms:.3f} ms by {bb_by}); launches {counts} around one forward "
+        f"and backward, {lm_counts} in the Granite step; relative L2 to "
+        f"the f32 plain route, kernel / plain bf16 (kernel to plain): "
+        f"{shown}; y max |err| to the plain route {err:.3e}")
+    if counts != {"ssd_scan": 1, "ssd_scan_bwd": 1}:
+        fail(f"ssd_scan: launches {counts} around one forward and backward")
+    over = [n for n, (k, p, _) in gaps.items() if not k <= p]
+    if over:
+        fail(f"ssd_scan: {over} of the kernels further from the f32 plain "
+             f"route than the plain bf16 route is: {shown}")
+    return [{"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_scan.cu", "replaces": None,
+             "launches": sum(lm_counts.values()), "max_abs_err": err,
+             "ms": f_ms, "bwd_ms": b_ms, "plain_ms": pf_ms,
+             "plain_bwd_ms": pb_ms, "bound_ms": fb_ms, "bound_by": fb_by,
+             "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by,
+             "library_ms": None}]
 
 
 def time_flash(gen, counts, errs):
@@ -5124,8 +5284,8 @@ def main(argv=None) -> int:
         # LM training through launch/train.py: the main path of this slice
         # (lloyd_update's and pq_quantize's launches in the Llama run), the
         # SSM and MoE runs, and the Mamba2 serve
-        lm_counts, lm_errs, lm_main, lm_adafactor = phase_lm_train(
-            args.seed)
+        lm_counts, lm_errs, lm_main, lm_adafactor, lm_ssd = \
+            phase_lm_train(args.seed)
         torch.cuda.empty_cache()
         mark("lm")
         # the production meshes: the Llama run and serve under a 1 x 1 NCCL
@@ -5148,6 +5308,7 @@ def main(argv=None) -> int:
     kernels += time_mesh(gen, mesh_counts, errs)
     kernels += sharded_entries(kernels, sharded_counts)
     kernels += time_adafactor(lm_adafactor, args.seed)
+    kernels += time_ssd_scan(lm_ssd, args.seed)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,9 @@ Every input has a leading problem axis P (clients x codebook groups for
 k-means, clients for scalar quantization and packing): the reference
 vmaps one problem per call, the kernels take all of them in one launch.
 ``adafactor_update`` takes one optimizer leaf in the reference's layout.
+``ssd_scan`` takes ``models/ssm.ssd_scan``'s arguments and routes them
+itself (``ssd_scan_route``): the kernels where they take the inputs, the
+plain chunk loop for the rest.
 ``flash_attention`` takes the reference's (B·H, S, hd) layout and
 ``flash_attention_strided`` the projections' (B, S, H, hd) views, both at
 any S: the kernel masks its ragged last tile, so no padded copy is made.
@@ -42,6 +45,7 @@ from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
                                               unpack_codes_kernel)
+from repro_torch.kernels.ssd_scan import refusal, ssd_scan_kernel
 
 
 def _pad_centroids(c: torch.Tensor, lane: int = 8):
@@ -185,3 +189,30 @@ def flash_attention_strided(q: torch.Tensor, k: torch.Tensor,
     _local("flash_attention", q, k, v)
     _forward_only(q, k, v)
     return flash_attention_bshd(q, k, v, scale=scale, window=window)
+
+
+def ssd_scan_route(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                   h0: Optional[torch.Tensor] = None) -> str:
+    """Which route ``ssd_scan`` takes: "kernel" for a CUDA x whose inputs
+    the kernels take (``kernels/ssd_scan.refusal``: x, B and C in bf16, dt
+    and A in f32, as ``cfg.ssm_decay_f32`` makes them; head dim 64; state
+    64 or 128; a chunk that is a multiple of 16 up to 256 and divides the
+    sequence; the layout ``apply_ssm`` gives them), else "plain": the CPU,
+    a decay in the stream's dtype (the twin's rounding, kept as the
+    reference has it), f32 streams (bf16 operands would be a lower
+    precision than the configuration's) and an undivided sequence."""
+    return "kernel" if xh.is_cuda and refusal(
+        xh, dt, A, Bm, Cm, chunk, h0) is None else "plain"
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None):
+    """The chunked SSD scan (``models/ssm.ssd_scan``): (y, final state),
+    on the route ``ssd_scan_route`` names. No fallback: the kernel route
+    launches the kernels or raises."""
+    _local("ssd_scan", xh, dt, A, Bm, Cm, h0)
+    if ssd_scan_route(xh, dt, A, Bm, Cm, chunk, h0) == "kernel":
+        return ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk, h0)
+    return ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk, h0)

@@ -9,7 +9,9 @@ centroid valid), and ``weights`` may be None (every weight 1). The scalar
 quantizer and the packers take ``(P, N)`` values or codes, one range or
 one stream of words per problem. Flash attention takes the kernel's
 ``(B·H, S, hd)`` layout. Adafactor's update takes one leaf's gradient in
-the reference's layout and its second moment.
+the reference's layout and its second moment. The SSD scan
+(``ssd_scan_ref``, the chunk loop of ``models/ssm.py``'s scan) takes
+x (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N) and h0.
 
 Assignment is written in the score form the kernels compute,
 ``argmax_l (2·x·c_l − ‖c_l‖²)`` -- the argmin of ``‖x − c_l‖²`` without
@@ -20,10 +22,14 @@ never win, and ties going to the first index, as ``jnp.argmax`` and
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.backends import opt_einsum
+from torch.overrides import has_torch_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.ctx import like
 
@@ -191,3 +197,95 @@ def adafactor_update_ref(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
     urms = (u.square().mean() + eps).sqrt()
     u = u / (urms / clip).clamp_min(1.0)
     return (u * -lr).to(g.dtype), new
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan
+
+
+@functools.lru_cache(maxsize=256)
+def _path(equation: str, shapes: tuple) -> list:
+    """opt_einsum's contraction path of ``equation`` at ``shapes``,
+    flattened as ``torch.einsum`` hands it to the contraction."""
+    pairs = opt_einsum.get_opt_einsum().contract_path(
+        equation, *shapes, optimize=opt_einsum.strategy, shapes=True)[0]
+    return [i for pair in pairs for i in pair]
+
+
+def cached_einsum(equation: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``, with opt_einsum's path for three operands or more
+    looked up once a set of shapes and not worked out on every call (some
+    200 us of host time a call, three calls a chunk, which left the card
+    waiting in the chunk loop): the same contraction, op for op."""
+    if len(ops) <= 2 or not opt_einsum.enabled \
+            or not opt_einsum.is_available() or has_torch_function(ops):
+        return torch.einsum(equation, *ops)
+    path = _path(equation, tuple(tuple(t.shape) for t in ops))
+    return torch._VF.einsum(equation, ops, path=path)
+
+
+def _segsum_decay(dA: torch.Tensor) -> torch.Tensor:
+    """dA: (..., Cs, H) -> decay L (..., H, Cs, Cs):
+    L[i,j] = exp(Σ_{j<t<=i} dA_t), 0 above the diagonal."""
+    cum = dA.cumsum(-2).movedim(-1, -2)                 # (..., H, Cs)
+    diff = cum[..., :, None] - cum[..., None, :]        # (..., H, Cs, Cs)
+    Cs = dA.shape[-2]
+    mask = torch.ones((Cs, Cs), dtype=torch.bool, device=dA.device).tril()
+    # mask BEFORE exp: the upper triangle's diffs are large and positive,
+    # exp of them is inf, and a mask after it would give the backward pass
+    # 0·inf = NaN
+    return torch.exp(torch.where(mask, diff, -torch.inf))
+
+
+def _chunk_stats(x_c, dt_c, B_c, C_c, A):
+    """One chunk's intra-chunk output, the state it contributes (decayed to
+    the chunk's end), the decay from its start to each position, and its
+    total decay. The decay is computed in dt's dtype and cast to the
+    stream's for the products (no cast where the two are one)."""
+    stream = x_c.dtype
+    dA_c = dt_c * A                                     # (B,Cs,H), <= 0
+    xdt_c = (x_c * dt_c[..., None]).to(stream)          # (B,Cs,H,P)
+    L = _segsum_decay(dA_c).to(stream)                  # (B,H,Cs,Cs)
+    CB = torch.einsum("bin,bjn->bij", C_c, B_c)         # (B,Cs,Cs)
+    y_intra = cached_einsum("bij,bhij,bjhp->bihp", CB, L, xdt_c)
+    cum = dA_c.cumsum(1)                                # (B,Cs,H)
+    decay_end = torch.exp(cum[:, -1:, :] - cum).to(stream)  # (B,Cs,H)
+    state = cached_einsum("bjn,bjh,bjhp->bhpn", B_c, decay_end, xdt_c)
+    decay_in = torch.exp(cum).to(stream)                # (B,Cs,H)
+    chunk_decay = torch.exp(cum[:, -1, :])              # (B,H)
+    return y_intra, state, decay_in, chunk_decay
+
+
+def ssd_chunk_len(S: int, chunk: int) -> int:
+    """The plain version's chunk length: ``chunk``, or S where the chunk
+    does not divide the sequence (one chunk)."""
+    Cs = min(chunk, S)
+    return Cs if S % Cs == 0 else S
+
+
+def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD as eager PyTorch (``models/ssm.ssd_scan``'s
+    arguments and result), the plain route of ``ops.ssd_scan``. Under
+    autograd each chunk's statistics are rematerialized in the backward
+    pass, so only the raw inputs and the carried states stay alive across
+    the scan."""
+    B, S, H, P = xh.shape
+    Cs = ssd_chunk_len(S, chunk)
+    h = torch.zeros((B, H, P, Bm.shape[-1]), dtype=dt.dtype,
+                    device=xh.device) if h0 is None else h0
+    remat = torch.is_grad_enabled()
+    ys = []
+    for c0 in range(0, S, Cs):
+        inp = (xh[:, c0:c0 + Cs], dt[:, c0:c0 + Cs], Bm[:, c0:c0 + Cs],
+               Cm[:, c0:c0 + Cs], A)
+        y_intra, state, decay_in, chunk_decay = \
+            checkpoint(_chunk_stats, *inp, use_reentrant=False) \
+            if remat else _chunk_stats(*inp)
+        y_inter = cached_einsum("bin,bhpn,bih->bihp", inp[3],
+                                h.to(y_intra.dtype), decay_in)
+        h = chunk_decay[:, :, None, None] * h + state.to(h.dtype)
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h

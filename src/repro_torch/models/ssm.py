@@ -21,22 +21,23 @@ exponentials) takes dt's dtype and the products the stream's: the
 reference's scan casts dt to the stream's dtype, so a bf16 stream sums
 the decay in bf16, whose spacing at a chunk's end (|Σ dt·A| in the
 hundreds) is a unit or more; ``cfg.ssm_decay_f32`` keeps dt, the decay
-and the carried state in f32, as mamba_ssm's kernels do. Each
-``ssd_scan`` call is an ``ssm.scan`` span (``repro_torch.obs``).
+and the carried state in f32, as mamba_ssm's kernels do; that combination
+on the card (x, B and C in bf16, dt and A in f32) takes the fused CUDA
+kernels (``kernels/ssd_scan.py``, ``csrc/ssd_scan.cu``), everything else
+the plain chunk loop (``kernels/ref.ssd_scan_ref``). Each ``ssd_scan`` call is an ``ssm.scan`` span
+(``repro_torch.obs``; arg ``route``: "kernel" or "plain").
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.backends import opt_einsum
-from torch.overrides import has_torch_function
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import obs
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import cached_einsum, ssd_chunk_len
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
 from repro_torch.sharding import ctx
 
@@ -80,59 +81,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y + b
 
 
-@functools.lru_cache(maxsize=256)
-def _path(equation: str, shapes: tuple) -> list:
-    """opt_einsum's contraction path of ``equation`` at ``shapes``,
-    flattened as ``torch.einsum`` hands it to the contraction."""
-    pairs = opt_einsum.get_opt_einsum().contract_path(
-        equation, *shapes, optimize=opt_einsum.strategy, shapes=True)[0]
-    return [i for pair in pairs for i in pair]
-
-
-def _einsum(equation: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum``, with opt_einsum's path for three operands or more
-    looked up once a set of shapes and not worked out on every call (some
-    200 us of host time a call, three calls a chunk, which left the card
-    waiting in the chunk loop): the same contraction, op for op."""
-    if len(ops) <= 2 or not opt_einsum.enabled \
-            or not opt_einsum.is_available() or has_torch_function(ops):
-        return torch.einsum(equation, *ops)
-    path = _path(equation, tuple(tuple(t.shape) for t in ops))
-    return torch._VF.einsum(equation, ops, path=path)
-
-
-def _segsum_decay(dA: torch.Tensor) -> torch.Tensor:
-    """dA: (..., Cs, H) -> decay L (..., H, Cs, Cs):
-    L[i,j] = exp(Σ_{j<t<=i} dA_t), 0 above the diagonal."""
-    cum = dA.cumsum(-2).movedim(-1, -2)                 # (..., H, Cs)
-    diff = cum[..., :, None] - cum[..., None, :]        # (..., H, Cs, Cs)
-    Cs = dA.shape[-2]
-    mask = torch.ones((Cs, Cs), dtype=torch.bool, device=dA.device).tril()
-    # mask BEFORE exp: the upper triangle's diffs are large and positive,
-    # exp of them is inf, and a mask after it would give the backward pass
-    # 0·inf = NaN
-    return torch.exp(torch.where(mask, diff, -torch.inf))
-
-
-def _chunk_stats(x_c, dt_c, B_c, C_c, A):
-    """One chunk's intra-chunk output, the state it contributes (decayed to
-    the chunk's end), the decay from its start to each position, and its
-    total decay. The decay is computed in dt's dtype and cast to the
-    stream's for the products (no cast where the two are one)."""
-    stream = x_c.dtype
-    dA_c = dt_c * A                                     # (B,Cs,H), <= 0
-    xdt_c = (x_c * dt_c[..., None]).to(stream)          # (B,Cs,H,P)
-    L = _segsum_decay(dA_c).to(stream)                  # (B,H,Cs,Cs)
-    CB = torch.einsum("bin,bjn->bij", C_c, B_c)         # (B,Cs,Cs)
-    y_intra = _einsum("bij,bhij,bjhp->bihp", CB, L, xdt_c)
-    cum = dA_c.cumsum(1)                                # (B,Cs,H)
-    decay_end = torch.exp(cum[:, -1:, :] - cum).to(stream)  # (B,Cs,H)
-    state = _einsum("bjn,bjh,bjhp->bhpn", B_c, decay_end, xdt_c)
-    decay_in = torch.exp(cum).to(stream)                # (B,Cs,H)
-    chunk_decay = torch.exp(cum[:, -1, :])              # (B,H)
-    return y_intra, state, decay_in, chunk_decay
-
-
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
              h0: Optional[torch.Tensor] = None
@@ -141,32 +89,17 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     xh: (B,S,H,P); dt: (B,S,H); A: (H,) negative; Bm/Cm: (B,S,N).
     Returns (y (B,S,H,P), final state (B,H,P,N)). A sequence that the
-    chunk does not divide runs as one chunk. Under autograd each chunk's
-    statistics are rematerialized in the backward pass, so only the raw
-    inputs and the carried states stay alive across the scan. dt and A
-    in f32 under a narrower stream keep the decay, and the carried state,
-    in f32.
+    chunk does not divide runs as one chunk. dt and A in f32 under a
+    narrower stream keep the decay, and the carried state, in f32.
+    ``ops.ssd_scan`` routes: the CUDA kernels or the plain chunk loop
+    (``ops.ssd_scan_route``); the ``ssm.scan`` span says which (arg
+    ``route``).
     """
-    B, S, H, P = xh.shape
-    Cs = min(chunk, S)
-    if S % Cs != 0:
-        Cs = S
-    h = torch.zeros((B, H, P, Bm.shape[-1]), dtype=dt.dtype,
-                    device=xh.device) if h0 is None else h0
-    remat = torch.is_grad_enabled()
-    ys = []
-    with obs.span("ssm.scan", cat="ssm", chunks=S // Cs, chunk=Cs):
-        for c0 in range(0, S, Cs):
-            inp = (xh[:, c0:c0 + Cs], dt[:, c0:c0 + Cs], Bm[:, c0:c0 + Cs],
-                   Cm[:, c0:c0 + Cs], A)
-            y_intra, state, decay_in, chunk_decay = \
-                checkpoint(_chunk_stats, *inp, use_reentrant=False) \
-                if remat else _chunk_stats(*inp)
-            y_inter = _einsum("bin,bhpn,bih->bihp", inp[3],
-                              h.to(y_intra.dtype), decay_in)
-            h = chunk_decay[:, :, None, None] * h + state.to(h.dtype)
-            ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1), h
+    S = xh.shape[1]
+    Cs = ssd_chunk_len(S, chunk)
+    with obs.span("ssm.scan", cat="ssm", chunks=S // Cs, chunk=Cs,
+                  route=ops.ssd_scan_route(xh, dt, A, Bm, Cm, chunk, h0)):
+        return ops.ssd_scan(xh, dt, A, Bm, Cm, chunk, h0)
 
 
 def init_ssm_cache(cfg, batch: int, dtype: torch.dtype, *,
@@ -245,8 +178,8 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg, *, mode: str = "train",
         if mode == "decode":
             h_prev = c_h
             dA = torch.exp(dt[:, 0] * A)                           # (B,H) f32
-            upd = _einsum("bn,bh,bhp->bhpn",
-                          *_promoted(Bm[:, 0], dt[:, 0], xs[:, 0]))
+            upd = cached_einsum("bn,bh,bhp->bhpn",
+                                *_promoted(Bm[:, 0], dt[:, 0], xs[:, 0]))
             # the recurrent state stays in its cache dtype
             h = (dA[:, :, None, None] * h_prev + upd).to(h_prev.dtype)
             y = torch.einsum("bn,bhpn->bhp",

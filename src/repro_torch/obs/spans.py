@@ -25,8 +25,9 @@ path without taxing uninstrumented runs. The spans that exist:
   * ``wire.*`` — the wire codec (``federated/wire.py``);
     ``checkpoint.save`` / ``checkpoint.restore`` / ``recovery.snapshot`` —
     checkpoint I/O;
-  * ``ssm.scan`` — an ``ssd_scan`` call, its chunk loop (``models/ssm.py``;
-    args: chunks, chunk);
+  * ``ssm.scan`` — an ``ssd_scan`` call: its chunk loop or its CUDA
+    kernels (``models/ssm.py``; args: chunks, chunk, route "plain" or
+    "kernel");
   * ``moe.route`` / ``moe.dispatch`` / ``moe.experts`` / ``moe.combine`` —
     an MoE layer's router and slots, its scatter, its expert products and
     its gathers (``models/moe.py``; args: k, capacity, experts held), and

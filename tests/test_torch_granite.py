@@ -207,7 +207,7 @@ def test_spans_fire_once_a_layer_in_a_forward():
         assert all(isinstance(v, (int, float, str))
                    for v in e["args"].values()), e
     scan = [e for e in spans if e["name"] == "ssm.scan"][0]
-    assert scan["args"] == {"chunks": 2, "chunk": 32}
+    assert scan["args"] == {"chunks": 2, "chunk": 32, "route": "plain"}
     route = [e for e in spans if e["name"] == "moe.route"][0]
     assert route["args"] == {"k": 4, "capacity": 80, "experts_held": 4}
 
@@ -313,13 +313,13 @@ def test_held_dispatch_ranks_as_the_one_hot_count():
 def test_cached_einsum_path_runs_torch_einsums_ops():
     """The SSD's einsum with its contraction path looked up once a set of
     shapes dispatches the ops ``torch.einsum`` does, to the same values."""
-    from repro_torch.models import ssm
+    from repro_torch.kernels.ref import cached_einsum
     g = torch.Generator().manual_seed(7)
     ops = (torch.randn(2, 8, 8, generator=g),
            torch.randn(2, 3, 8, 8, generator=g),
            torch.randn(2, 8, 3, 5, generator=g))
     traces = []
-    for fn in (torch.einsum, ssm._einsum):
+    for fn in (torch.einsum, cached_einsum):
         with _Ops() as rec:
             out = fn("bij,bhij,bjhp->bihp", *ops)
         traces.append((rec.ops, out))

@@ -20,6 +20,7 @@ from repro.models import ssm as jssm
 from repro_torch.configs import jamba_v0p1_52b as tjamba
 from repro_torch.configs import mamba2_1p3b as tmamba
 from repro_torch.core import fedlite as tfed
+from repro_torch.kernels import ref as tref
 from repro_torch.launch.specs import make_model as tmake_model
 from repro_torch.models import ssm as tssm
 from repro_torch.models.transformer import from_jax_params
@@ -85,14 +86,14 @@ def test_segsum_decay_masks_before_exp():
     r = np.random.default_rng(4)
     dA = (-np.abs(r.standard_normal((2, 16, 3))) * 60).astype(np.float32)
     w = r.standard_normal((2, 3, 16, 16)).astype(np.float32)
-    L = tssm._segsum_decay(torch.from_numpy(dA))
+    L = tref._segsum_decay(torch.from_numpy(dA))
     Lj = jssm._segsum_decay(jnp.asarray(dA))
     # entries in [0, 1]: exp of sums of ~1e3 whose f32 rounding differs
     np.testing.assert_allclose(_np(L), np.asarray(Lj), rtol=1e-4, atol=1e-6)
     assert bool((L[..., ~torch.ones(16, 16, dtype=torch.bool).tril()] == 0)
                 .all())
     dt = torch.from_numpy(dA).requires_grad_()
-    (tssm._segsum_decay(dt) * torch.from_numpy(w)).sum().backward()
+    (tref._segsum_decay(dt) * torch.from_numpy(w)).sum().backward()
     gj = jax.grad(lambda a: jnp.sum(jssm._segsum_decay(a) * w))(
         jnp.asarray(dA))
     assert bool(torch.isfinite(dt.grad).all())
