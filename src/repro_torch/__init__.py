@@ -23,6 +23,7 @@ see ``kernels/_build.py``): ``lloyd_update``, ``pq_quantize``,
 and ``flash_attention``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
-On CPU tensors the kernel wrappers compute their plain PyTorch versions
-(``kernels/ref.py``); on CUDA tensors they launch the kernel or raise.
+On CPU tensors the kernel wrappers (``kernels/ops.py``) compute their
+plain PyTorch versions (``kernels/ref.py``); on CUDA tensors they launch
+the kernel or raise.
 """

@@ -54,7 +54,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import kmeans as _km
 from repro_torch.core.quantizer import (PQConfig, QuantizerState, quantize,
                                         quantize_stateful)
 from repro_torch.kernels import ops, ref
@@ -320,9 +319,7 @@ class ScalarQuantCompressor(CutCompressor):
     def __post_init__(self):
         if not 1 <= self.bits <= 16:
             raise ValueError(f"scalarq bits={self.bits} must be in [1, 16]")
-        if self.backend not in _km.available_backends():
-            raise ValueError(f"backend={self.backend!r} not one of "
-                             f"{_km.available_backends()}")
+        ops.check_backend(self.backend)
 
     def compress(self, z, *, generator=None) -> Compressed:
         flat = z.reshape(z.shape[0], -1)
@@ -339,8 +336,7 @@ class ScalarQuantCompressor(CutCompressor):
                                            device=t.device))
             q = t.clamp(0.0, float(levels))
             codes, recon = q.to(torch.int32), lo[:, None] + q * scale[:, None]
-        elif _km.resolve_backend(self.backend, z.device) == "cuda":
-            _km._require_cuda(z)
+        elif ops.use_kernel(z, self.backend):
             codes, recon = ops.scalar_quantize(flat, lo, scale, self.bits)
         else:
             codes, recon = ref.scalar_quantize_ref(flat, lo, scale,

@@ -43,9 +43,9 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import obs
-from repro_torch.core import kmeans as _km
 from repro_torch.core.quantizer import PQConfig
 from repro_torch.core.split import dtype_bits, split_part, tree_bits
+from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer
 from repro_torch.sharding.ctx import like
 
@@ -597,7 +597,7 @@ def comm_report(model, params, tokens_per_client: int,
         "tokens_per_client": tokens_per_client,
         "phi_bits": float(act_phi),
         "pq_backend": None if pq is None
-        else _km.resolve_backend(pq.backend, device),
+        else ops.resolve_backend(pq.backend, device),
         "fedavg_uplink_bits": float(total_bits),
         "splitfed_uplink_bits": float(client_bits + act_bits),
         "splitfed_activation_bits": float(act_bits),

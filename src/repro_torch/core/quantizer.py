@@ -13,7 +13,7 @@ kernel launch whatever C and R are.
 
 Backends (``PQConfig.backend``): ``"auto"`` (the CUDA kernels for CUDA
 tensors, plain PyTorch otherwise), ``"cuda"`` or ``"torch"``; see
-``core/kmeans.py``.
+``kernels/ops.py``.
 
 Cross-round codebook warm start: ``QuantizerState`` carries each client's
 f32 codebooks and a round counter. A cold round (no state) seeds and runs
@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import kmeans as _km
+from repro_torch.kernels import ops, ref
 
 
 def bits_per_code(num_clusters: int) -> int:
@@ -60,9 +61,7 @@ class PQConfig:
                              f"R={self.num_groups}")
         if self.num_clusters < 1:
             raise ValueError("L must be >= 1")
-        if self.backend not in _km.available_backends():
-            raise ValueError(f"backend={self.backend!r} not one of "
-                             f"{_km.available_backends()}")
+        ops.check_backend(self.backend)
         if self.warm_iters is not None and self.warm_iters < 0:
             raise ValueError(f"warm_iters={self.warm_iters} must be >= 0")
 
@@ -197,8 +196,9 @@ def quantize(z: torch.Tensor, cfg: PQConfig,
                                   cfg.effective_warm_iters,
                                   chunk=cfg.kmeans_chunk,
                                   backend=cfg.backend, init_centroids=init)
-    enc = _km.get_backend(cfg.backend, z.device).encode
-    recon, resid, codes = enc(groups, cents)
+    recon, resid, codes = ops.pq_quantize(groups, cents) \
+        if ops.use_kernel(groups, cfg.backend) \
+        else ref.pq_quantize_ref(groups, cents)
     z_tilde = _from_groups(recon, c, n, d, cfg).to(z.dtype)
     # the residual is kept in z.dtype (the correction saves it for the
     # backward pass); the distortion is summed in f32 first

@@ -8,7 +8,11 @@ its source, so an edited kernel is rebuilt and a stale one is never loaded.
 
 Launchers take pointers and the stream as ``c_void_p`` and sizes as
 ``c_int``, launch on the given stream, allocate nothing, and return
-``cudaGetLastError()``; the Python wrapper raises when that is not 0.
+``cudaGetLastError()``. ``launch`` is the one place that calls them: it
+passes tensors as their data pointers and None as a null pointer, appends
+the current stream of the tensors' device, and raises when the launcher
+returns an error. A kernel module gives it the launcher's arguments and
+their ctypes types, the stream left out.
 
 Launch counts: every wrapper calls ``count(name)`` right after its kernel
 launched, and nowhere else, so a run can show that its main path went
@@ -25,7 +29,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Set, Tuple
+from typing import Dict, Iterable, NamedTuple, Sequence, Set, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -118,3 +124,19 @@ def load(name: str, fn: str, argtypes) -> ctypes.CDLL:
         launcher.restype = ctypes.c_int
         _TYPED.add((name, fn))
     return lib
+
+
+def launch(name: str, fn: str, argtypes: Sequence, *args) -> None:
+    """Call launcher ``fn`` of library ``name`` (typed with ``argtypes``
+    and the stream's ``c_void_p`` on first use, as ``load`` does) on
+    ``args``: a tensor passes as its data pointer, None as a null pointer,
+    anything else as it is; the current stream of the first tensor's
+    device goes last. Raises RuntimeError when the launcher returns a CUDA
+    error."""
+    lib = load(name, fn, [*argtypes, ctypes.c_void_p])
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    rc = getattr(lib, fn)(
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: {fn} failed with CUDA error {rc}")

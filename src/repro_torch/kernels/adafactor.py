@@ -31,8 +31,8 @@ its row sums are added over the mesh dims that split the leaf's last dim,
 its column sums and each matrix's sum of rows over those that split the
 second last, and Σ u² over every mesh dim that splits the leaf.
 
-On a CPU tensor ``adafactor_update_kernel`` computes the plain version; on
-a CUDA tensor it launches the kernel or raises.
+``adafactor_update_kernel`` launches the kernel or raises, a CPU tensor
+included (``ops.adafactor_update`` takes the plain version there).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build
 from repro_torch.sharding.ctx import like
 
 TILE_ROWS = 256   # rows of a pass's tile (csrc/adafactor.cu's kTileRows)
@@ -54,15 +54,13 @@ FULL_TILE = 256 * 16   # values a block of the whole form takes
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# each launcher's arguments; the stream, last, is added by _launch
-_ARGTYPES = {
-    "adafactor_sums_launch": [_P] * 4 + [_L] + [_I] * 5 + [_F],
-    "adafactor_factors_launch": [_P] * 7 + [_I] * 3 + [_F] * 4,
-    "adafactor_squares_launch": [_P] * 6 + [_L] + [_I] * 5 + [_F] * 2,
-    "adafactor_apply_launch": [_P] * 6 + [_I] * 5 + [_F] * 5,
-    "adafactor_full_squares_launch": [_P] * 5 + [_L, _L, _I] + [_F] * 3,
-    "adafactor_full_apply_launch": [_P] * 4 + [_L, _I] + [_F] * 4,
-}
+# each launcher's arguments (the stream, last, is added by _build.launch)
+_SUMS = [_P] * 4 + [_L] + [_I] * 5 + [_F]
+_FACTORS = [_P] * 7 + [_I] * 3 + [_F] * 4
+_SQUARES = [_P] * 6 + [_L] + [_I] * 5 + [_F] * 2
+_APPLY = [_P] * 6 + [_I] * 5 + [_F] * 5
+_FULL_SQUARES = [_P] * 5 + [_L, _L, _I] + [_F] * 3
+_FULL_APPLY = [_P] * 4 + [_L, _I] + [_F] * 4
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # sum_over(over, t) adds t in place over the ranks that hold the leaf's
@@ -79,22 +77,6 @@ def vec_values(dtype: torch.dtype) -> int:
 def _tiles(rows: int, cols: int, dtype: torch.dtype) -> Tuple[int, int]:
     """The factored form's row tiles and column tiles of a matrix."""
     return -(-rows // TILE_ROWS), -(-cols // (32 * vec_values(dtype)))
-
-
-def _launch(name: str, *args) -> None:
-    """Launcher ``name`` of ``csrc/adafactor.cu`` on the current stream:
-    tensors pass as their data pointers; raises on a CUDA error."""
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError(f"adafactor_update: {name} needs CUDA tensors")
-    lib = _build.load("adafactor", name, _ARGTYPES[name] + [_P])
-    dev = tensors[0].device
-    rc = getattr(lib, name)(
-        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"adafactor_update: {name} failed with CUDA "
-                           f"error {rc}")
 
 
 def _no_sum(over: str, t: torch.Tensor) -> None:
@@ -117,11 +99,13 @@ def _run(g: torch.Tensor, v: Dict[str, torch.Tensor],
                           dtype=torch.float32)
         sumsq, part = buf[:1], buf[1:]
         new = {"full": torch.empty_like(v["full"])}
-        _launch("adafactor_full_squares_launch", g, v["full"], new["full"],
-                sumsq, part, part.numel(), n, bf16, beta, one_minus, eps)
+        _build.launch("adafactor", "adafactor_full_squares_launch",
+                      _FULL_SQUARES, g, v["full"], new["full"], sumsq, part,
+                      part.numel(), n, bf16, beta, one_minus, eps)
         sum_over("N", sumsq)
-        _launch("adafactor_full_apply_launch", g, new["full"], sumsq, out, n,
-                bf16, count, eps, clip, -lr)
+        _build.launch("adafactor", "adafactor_full_apply_launch",
+                      _FULL_APPLY, g, new["full"], sumsq, out, n, bf16,
+                      count, eps, clip, -lr)
     else:
         rows, cols = g.shape[-2:]
         nmat = math.prod(g.shape[:-2])
@@ -137,19 +121,22 @@ def _run(g: torch.Tensor, v: Dict[str, torch.Tensor],
                "col": torch.empty_like(v["col"])}
         vec = int(cols % vec_values(g.dtype) == 0)
         shape_args = (nmat, rows, cols, bf16, vec)
-        _launch("adafactor_sums_launch", g, row_sum, col_sum, scratch,
-                scratch_n, *shape_args, eps)
+        _build.launch("adafactor", "adafactor_sums_launch", _SUMS, g,
+                      row_sum, col_sum, scratch, scratch_n, *shape_args, eps)
         sum_over("C", row_sum)
         sum_over("R", col_sum)
-        _launch("adafactor_factors_launch", row_sum, col_sum, v["row"],
-                v["col"], new["row"], new["col"], total, nmat, rows, cols,
-                float(big_c), float(big_r), beta, one_minus)
+        _build.launch("adafactor", "adafactor_factors_launch", _FACTORS,
+                      row_sum, col_sum, v["row"], v["col"], new["row"],
+                      new["col"], total, nmat, rows, cols, float(big_c),
+                      float(big_r), beta, one_minus)
         sum_over("R", total)
-        _launch("adafactor_squares_launch", g, new["row"], new["col"], total,
-                sumsq, scratch, scratch_n, *shape_args, float(big_r), eps)
+        _build.launch("adafactor", "adafactor_squares_launch", _SQUARES, g,
+                      new["row"], new["col"], total, sumsq, scratch,
+                      scratch_n, *shape_args, float(big_r), eps)
         sum_over("N", sumsq)
-        _launch("adafactor_apply_launch", g, new["row"], new["col"], total,
-                sumsq, out, *shape_args, float(big_r), count, eps, clip, -lr)
+        _build.launch("adafactor", "adafactor_apply_launch", _APPLY, g,
+                      new["row"], new["col"], total, sumsq, out, *shape_args,
+                      float(big_r), count, eps, clip, -lr)
     _build.count("adafactor_update")
     return out, new
 
@@ -193,8 +180,6 @@ def adafactor_update_kernel(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
     aligned, f32 or bf16; v the leaf's second moment (contiguous f32).
     Returns (the update in g's dtype, the new v)."""
     kw = dict(beta=beta, one_minus=one_minus, lr=lr, eps=eps, clip=clip)
-    if g.device.type == "cpu":
-        return ref.adafactor_update_ref(g, v, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"adafactor_update: needs a CUDA tensor, got "
                          f"{g.device}")

@@ -19,8 +19,8 @@ to bf16 before P·V as the reference's model path rounds it) and
 ``cuda_core`` (f32, keeping the reference's f32 numerics, and bf16 at
 other hd). Both count their launches as ``flash_attention``.
 
-On a CPU tensor the wrappers compute the plain version; on a CUDA tensor
-they launch the kernel or raise. The kernel takes any S (it masks the
+The wrappers launch the kernel or raise, a CPU tensor included (``ops``
+takes the plain version there). The kernel takes any S (it masks the
 ragged last tile itself) and hd <= 128. Its online softmax sums in another
 order than the plain version's softmax, so the two agree to f32 rounding
 (and, on the tensor-core route, to P's bf16 rounding).
@@ -33,13 +33,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build
 
 MAX_HD = 128
 
 _HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_int]
-_STRIDES = [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+_STRIDES = [ctypes.c_longlong] * 12
 _TC_ARGTYPES = _HEAD + _STRIDES
 _CC_ARGTYPES = _HEAD + [ctypes.c_int] + _STRIDES
 
@@ -99,21 +99,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, hd = q.shape
     kv = k.shape[1]
     strides = [st for t in (q, k, v, o) for st in t.stride()[:3]]
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, hd,
-            h, kv, scale, 0 if window is None else window)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    head = (q, k, v, o, b, s, hd, h, kv, scale,
+            0 if window is None else window)
     if flash_route(q.dtype, hd) == "tensor_core":
-        lib = _build.load("flash_attention", "flash_attention_tc_launch",
-                          _TC_ARGTYPES)
-        rc = lib.flash_attention_tc_launch(*head, *strides, stream)
+        _build.launch("flash_attention", "flash_attention_tc_launch",
+                      _TC_ARGTYPES, *head, *strides)
     else:
-        lib = _build.load("flash_attention", "flash_attention_cc_launch",
-                          _CC_ARGTYPES)
-        rc = lib.flash_attention_cc_launch(
-            *head, int(q.dtype == torch.bfloat16), *strides, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: launch failed with CUDA error "
-                           f"{rc}")
+        _build.launch("flash_attention", "flash_attention_cc_launch",
+                      _CC_ARGTYPES, *head, int(q.dtype == torch.bfloat16),
+                      *strides)
     _build.count("flash_attention")
 
 
@@ -122,10 +116,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            num_kv_heads: int, scale: float,
                            window: Optional[int] = None) -> torch.Tensor:
     """q (B·H, S, hd), k and v (B·Kv, S, hd) -> (B·H, S, hd) in q.dtype."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, num_q_heads=num_q_heads,
-                                       num_kv_heads=num_kv_heads,
-                                       scale=scale, window=window)
     h, kv = num_q_heads, num_kv_heads
     if q.dim() != 3 or h < 1 or q.shape[0] % h or k.dim() != 3 \
             or k.shape[0] != q.shape[0] // h * kv:
@@ -144,17 +134,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The strided entry: q (B, S, H, hd), k and v (B, S, Kv, hd) views
     with the head dim contiguous -> (B, S, H, hd) in q.dtype, contiguous.
 
-    On the card the kernel reads the views in place and writes the
-    (B, S, H, hd) output directly. On the CPU it computes the plain
-    version on the (B·H, S, hd) copies, through the same permutes."""
-    bsz, s, h, hd = q.shape
-    kv = k.shape[2]
-    if q.device.type == "cpu":
-        out = ref.flash_attention_ref(
-            *(t.transpose(1, 2).reshape(bsz * t.shape[2], s, hd)
-              for t in (q, k, v)),
-            num_q_heads=h, num_kv_heads=kv, scale=scale, window=window)
-        return out.reshape(bsz, h, s, hd).transpose(1, 2).contiguous()
+    The kernel reads the views in place and writes the (B, S, H, hd)
+    output directly."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             out.transpose(1, 2), scale, window)

@@ -17,8 +17,8 @@ D, any L, a mask, any alignment: the codebook streamed through shared
 memory in tiles of ``TILE_L`` centroids, the rows in chunks of ``D_TILE``
 dims). Both give the same codes and distances bit for bit.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises. The kernel takes its codes from the same
+The wrapper launches the kernel or raises, a CPU tensor included
+(``ops.kmeans_assign`` takes the plain version there). The kernel takes its codes from the same
 routine as ``lloyd_update`` and ``pq_quantize`` (``csrc/assign.cuh``); it
 agrees with the plain version but for near-ties, where the FMA order may
 pick the other code, and its distances to f32 rounding.
@@ -31,14 +31,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lloyd_update import (D8_TILE, ROUTE_IDS, _ptr,
+from repro_torch.kernels import _build
+from repro_torch.kernels.lloyd_update import (D8_TILE, ROUTE_IDS,
                                               check_cuda_inputs, d8_grid,
                                               d8_rows)
 
 D8_MIN_TILES = 1   # d8 route: tiles a block takes at least (PERF.md)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
 
 
 def assign_route(x: torch.Tensor, num_centroids: int,
@@ -55,25 +55,17 @@ def kmeans_assign_kernel(x: torch.Tensor, centroids: torch.Tensor,
     (every centroid valid).
 
     Returns (codes (P, N) int32, sqdist (P, N) f32)."""
-    if x.device.type == "cpu":
-        codes, sqdist = ref.kmeans_assign_ref(x, centroids, lmask)
-        return codes.to(torch.int32), sqdist
     check_cuda_inputs("kmeans_assign", x, centroids, lmask)
     p, n, d = x.shape
     l = centroids.shape[1]
     route = assign_route(x, l, lmask)
     blocks = d8_grid("kmeans_assign", "kmeans_assign_d8_occupancy", x, l,
                      D8_TILE, D8_MIN_TILES) if route == "d8" else 0
-    lib = _build.load("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
     sqdist = torch.empty((p, n), device=x.device, dtype=torch.float32)
-    rc = lib.kmeans_assign_launch(
-        x.data_ptr(), centroids.data_ptr(), _ptr(lmask),
-        codes.data_ptr(), sqdist.data_ptr(), p, n, l, d, ROUTE_IDS[route],
-        int(x.dtype == torch.bfloat16), D8_TILE, blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"kmeans_assign: launch failed with CUDA error "
-                           f"{rc}")
+    _build.launch("kmeans_assign", "kmeans_assign_launch", _ARGTYPES, x,
+                  centroids, lmask, codes, sqdist, p, n, l, d,
+                  ROUTE_IDS[route], int(x.dtype == torch.bfloat16), D8_TILE,
+                  blocks)
     _build.count("kmeans_assign")
     return codes, sqdist

@@ -28,8 +28,8 @@ block order: no atomics, so a run is bitwise the run before it.
 route's order, which the kernel meets bit for bit (given the same codes
 and 0/1 weights); ``tiled`` sums in ``generic``'s order.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+The wrapper launches the kernel or raises, a CPU tensor included
+(``ops.lloyd_update`` takes the plain version there).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ D_TILE = 64             # generic and tiled routes: dims a chunk
 GENERIC_MIN_BLOCKS = 2  # generic route: blocks it keeps resident per SM
 #                         at D = D_TILE; above the L where it cannot, tiled
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
 ROUTE_IDS = {"generic": 0, "d8": 1, "tiled": 2}   # the launchers' route
 
 
@@ -205,10 +205,6 @@ def check_cuda_inputs(name: str, x: torch.Tensor, centroids: torch.Tensor,
                          f"D={d}, L={centroids.shape[1]}")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def lloyd_update_kernel(x: torch.Tensor, weights: Optional[torch.Tensor],
                         centroids: torch.Tensor,
                         lmask: Optional[torch.Tensor] = None):
@@ -216,28 +212,20 @@ def lloyd_update_kernel(x: torch.Tensor, weights: Optional[torch.Tensor],
     (P, L, D), lmask (L,) or None (all valid).
 
     Returns (dsums (P, L, D) f32, counts (P, L) f32)."""
-    if x.device.type == "cpu":
-        return ref.lloyd_update_ref(x, weights, centroids, lmask)
     check_cuda_inputs("lloyd_update", x, centroids, lmask, weights)
     p, n, d = x.shape
     l = centroids.shape[1]
     lay = lloyd_layout(x, l)
-    lib = _build.load("lloyd_update", "lloyd_update_launch", _ARGTYPES)
     partials = torch.empty((p, lay.blocks, l * (d + 1)), device=x.device,
                            dtype=torch.float32)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32) \
         if lay.route == "tiled" else None
     dsums = torch.empty((p, l, d), device=x.device, dtype=torch.float32)
     counts = torch.empty((p, l), device=x.device, dtype=torch.float32)
-    rc = lib.lloyd_update_launch(
-        x.data_ptr(), _ptr(weights), centroids.data_ptr(), _ptr(lmask),
-        _ptr(codes), partials.data_ptr(), dsums.data_ptr(),
-        counts.data_ptr(), p, n, l, d, ROUTE_IDS[lay.route],
-        int(x.dtype == torch.bfloat16), lay.rows, lay.blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lloyd_update: launch failed with CUDA error "
-                           f"{rc}")
+    _build.launch("lloyd_update", "lloyd_update_launch", _ARGTYPES, x,
+                  weights, centroids, lmask, codes, partials, dsums, counts,
+                  p, n, l, d, ROUTE_IDS[lay.route],
+                  int(x.dtype == torch.bfloat16), lay.rows, lay.blocks)
     _build.count("lloyd_update")
     return dsums, counts
 

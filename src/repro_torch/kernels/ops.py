@@ -1,5 +1,14 @@
 """Public wrappers around the kernels (twin of ``repro/kernels/ops.py``).
 
+This module alone chooses between a kernel and its plain version
+(``kernels/ref``): every wrapper takes the kernel for a CUDA tensor and
+the plain version for any other (``use_kernel``), and the callers that
+name a backend (``"torch"``, ``"cuda"`` or ``"auto"``, ``BACKENDS``) ask
+``use_kernel`` which one to call. ``"torch"`` runs the plain version on
+any device, ``"auto"`` resolves by device, and ``"cuda"`` has no
+fallback: a tensor off the card raises. The ``*_kernel`` entries in the
+kernel modules launch or raise, whatever the device.
+
 The k-means wrappers (``kmeans_assign``, ``pq_quantize``,
 ``lloyd_update``) take any L and hand the codebook to the kernels as it
 is, with no mask: unlike the reference's ``_pad_centroids``, the kernels
@@ -47,6 +56,36 @@ from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               unpack_codes_kernel)
 from repro_torch.kernels.ssd_scan import refusal, ssd_scan_kernel
 
+BACKENDS = ("torch", "cuda", "auto")
+
+
+def check_backend(name: str) -> None:
+    """Raise on a backend name that is not one of ``BACKENDS``."""
+    if name not in BACKENDS:
+        raise ValueError(f"backend={name!r} not one of {BACKENDS}")
+
+
+def resolve_backend(name: str, device: torch.device) -> str:
+    """``name`` checked and, if ``"auto"``, resolved for tensors on
+    ``device``: ``"cuda"`` on a CUDA device, ``"torch"`` on any other."""
+    check_backend(name)
+    if name != "auto":
+        return name
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def use_kernel(t: torch.Tensor, backend: str = "auto") -> bool:
+    """Whether a call on t under ``backend`` runs the kernel (True) or its
+    plain version (False). No fallback: ``"cuda"`` raises on a tensor off
+    the card."""
+    if resolve_backend(backend, t.device) == "torch":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"quantizer backend 'cuda' runs CUDA tensors only; "
+                         f"got a tensor on {t.device} (use 'torch' or "
+                         f"'auto')")
+    return True
+
 
 def _pad_centroids(c: torch.Tensor, lane: int = 8):
     """(P, L, D) -> ((P, L_pad, D) f32 contiguous, lmask (L_pad,) f32)."""
@@ -80,7 +119,11 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     (P, L, D). Returns (codes (P, N) int32, sqdist (P, N) f32 =
     max(‖x‖² − best score, 0))."""
     _local("kmeans_assign", x, centroids)
-    return kmeans_assign_kernel(_rows(x), centroids.float().contiguous())
+    args = _rows(x), centroids.float().contiguous()
+    if use_kernel(x):
+        return kmeans_assign_kernel(*args)
+    codes, sqdist = ref.kmeans_assign_ref(*args)
+    return codes.to(torch.int32), sqdist
 
 
 def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
@@ -89,7 +132,9 @@ def pq_quantize(x: torch.Tensor, centroids: torch.Tensor):
     x (P, N, D) f32 or bf16; centroids (P, L, D). Returns (z̃ (P, N, D)
     x.dtype, residual (P, N, D) f32, codes (P, N) int32)."""
     _local("pq_quantize", x, centroids)
-    return pq_quantize_kernel(_rows(x), centroids.float().contiguous())
+    args = _rows(x), centroids.float().contiguous()
+    return pq_quantize_kernel(*args) if use_kernel(x) \
+        else ref.pq_quantize_ref(*args)
 
 
 def lloyd_update(x: torch.Tensor, centroids: torch.Tensor,
@@ -102,8 +147,9 @@ def lloyd_update(x: torch.Tensor, centroids: torch.Tensor,
     _local("lloyd_update", x, centroids, weights)
     if weights is not None:
         weights = weights.float().contiguous()
-    return lloyd_update_kernel(_rows(x), weights,
-                               centroids.float().contiguous())
+    args = _rows(x), weights, centroids.float().contiguous()
+    return lloyd_update_kernel(*args) if use_kernel(x) \
+        else ref.lloyd_update_ref(*args)
 
 
 def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
@@ -114,8 +160,10 @@ def scalar_quantize(x: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
     lo and scale (P,). Returns (codes (P, N) int32 in [0, 2^bits), recon
     (P, N) f32)."""
     _local("scalar_quantize", x, lo, scale)
-    return scalar_quantize_kernel(_rows(x), lo.float().contiguous(),
-                                  scale.float().contiguous(), bits)
+    args = (_rows(x), lo.float().contiguous(), scale.float().contiguous(),
+            bits)
+    return scalar_quantize_kernel(*args) if use_kernel(x) \
+        else ref.scalar_quantize_ref(*args)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -123,14 +171,17 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
     into little-endian 32-bit words: (P, ⌈N·bits/32⌉) int32 bit patterns,
     byte for byte the wire's LSB-first stream of each problem."""
     _local("pack_codes", codes)
-    return pack_codes_kernel(codes.to(torch.int32).contiguous(), bits)
+    args = codes.to(torch.int32).contiguous(), bits
+    return pack_codes_kernel(*args) if use_kernel(codes) \
+        else ref.pack_codes_ref(*args)
 
 
 def unpack_codes(words: torch.Tensor, count: int, bits: int) -> torch.Tensor:
     """Inverse of ``pack_codes``: (P, W) words -> (P, count) int32 codes."""
     _local("unpack_codes", words)
-    return unpack_codes_kernel(words.to(torch.int32).contiguous(), count,
-                               bits)
+    args = words.to(torch.int32).contiguous(), count, bits
+    return unpack_codes_kernel(*args) if use_kernel(words) \
+        else ref.unpack_codes_ref(*args)
 
 
 def adafactor_update(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
@@ -147,12 +198,13 @@ def adafactor_update(g: torch.Tensor, v: Dict[str, torch.Tensor], *,
     takes the plain version."""
     kw = dict(beta=beta, one_minus=one_minus, lr=lr, eps=eps, clip=clip)
     if isinstance(g, DTensor):
-        if g.to_local().is_cuda:
+        if use_kernel(g.to_local()):
             return adafactor_update_sharded(g, v, **kw)
         return ref.adafactor_update_ref(g, v, **kw)
     _local("adafactor_update", *v.values())
-    return adafactor_update_kernel(
-        aligned(g), {k: t.contiguous() for k, t in v.items()}, **kw)
+    args = aligned(g), {k: t.contiguous() for k, t in v.items()}
+    return adafactor_update_kernel(*args, **kw) if use_kernel(g) \
+        else ref.adafactor_update_ref(*args, **kw)
 
 
 def _forward_only(*ts: torch.Tensor) -> None:
@@ -173,10 +225,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd) in q.dtype. Raises on an input that requires grad."""
     _local("flash_attention", q, k, v)
     _forward_only(q, k, v)
-    return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), num_q_heads=num_q_heads,
-                                  num_kv_heads=num_kv_heads, scale=scale,
-                                  window=window)
+    fn = flash_attention_kernel if use_kernel(q) \
+        else ref.flash_attention_ref
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
+              num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              scale=scale, window=window)
 
 
 def flash_attention_strided(q: torch.Tensor, k: torch.Tensor,
@@ -188,7 +241,9 @@ def flash_attention_strided(q: torch.Tensor, k: torch.Tensor,
     requires grad."""
     _local("flash_attention", q, k, v)
     _forward_only(q, k, v)
-    return flash_attention_bshd(q, k, v, scale=scale, window=window)
+    fn = flash_attention_bshd if use_kernel(q) \
+        else ref.flash_attention_bshd_ref
+    return fn(q, k, v, scale=scale, window=window)
 
 
 def ssd_scan_route(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -202,7 +257,7 @@ def ssd_scan_route(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     a decay in the stream's dtype (the twin's rounding, kept as the
     reference has it), f32 streams (bf16 operands would be a lower
     precision than the configuration's) and an undivided sequence."""
-    return "kernel" if xh.is_cuda and refusal(
+    return "kernel" if use_kernel(xh) and refusal(
         xh, dt, A, Bm, Cm, chunk, h0) is None else "plain"
 
 

@@ -13,8 +13,8 @@ write each row with 16-byte stores) and ``generic`` (any D, any L, any
 alignment: the codebook streamed through shared memory in tiles of
 ``TILE_L`` centroids, the rows in chunks of ``D_TILE`` dims).
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises. Wherever kernel and plain version pick
+The wrapper launches the kernel or raises, a CPU tensor included
+(``ops.pq_quantize`` takes the plain version there). Wherever kernel and plain version pick
 the same code, z̃ and the residual are bitwise equal.
 """
 
@@ -25,15 +25,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.lloyd_update import (D8_THREADS, ROUTE_IDS, _ptr,
+from repro_torch.kernels import _build
+from repro_torch.kernels.lloyd_update import (D8_THREADS, ROUTE_IDS,
                                               check_cuda_inputs, d8_grid,
                                               d8_rows)
 
 D8_TILE = 2 * D8_THREADS   # d8 route: rows per tile, 2 per thread
 D8_MIN_TILES = 8   # d8 route: tiles a block takes at least (PERF.md)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
 
 
 def pq_route(x: torch.Tensor, num_centroids: int) -> str:
@@ -47,24 +47,18 @@ def pq_quantize_kernel(x: torch.Tensor, centroids: torch.Tensor,
 
     Returns (z̃ (P, N, D) in x.dtype, residual (P, N, D) f32,
     codes (P, N) int32)."""
-    if x.device.type == "cpu":
-        return ref.pq_quantize_ref(x, centroids, lmask)
     check_cuda_inputs("pq_quantize", x, centroids, lmask)
     p, n, d = x.shape
     l = centroids.shape[1]
     route = pq_route(x, l)
     blocks = d8_grid("pq_quantize", "pq_quantize_d8_occupancy", x, l,
                      D8_TILE, D8_MIN_TILES) if route == "d8" else 0
-    lib = _build.load("pq_quantize", "pq_quantize_launch", _ARGTYPES)
     zt = torch.empty_like(x)
     resid = torch.empty(x.shape, device=x.device, dtype=torch.float32)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
-    rc = lib.pq_quantize_launch(
-        x.data_ptr(), centroids.data_ptr(), _ptr(lmask), zt.data_ptr(),
-        resid.data_ptr(), codes.data_ptr(), p, n, l, d, ROUTE_IDS[route],
-        int(x.dtype == torch.bfloat16), D8_TILE, blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pq_quantize: launch failed with CUDA error {rc}")
+    _build.launch("pq_quantize", "pq_quantize_launch", _ARGTYPES, x,
+                  centroids, lmask, zt, resid, codes, p, n, l, d,
+                  ROUTE_IDS[route], int(x.dtype == torch.bfloat16), D8_TILE,
+                  blocks)
     _build.count("pq_quantize")
     return zt, resid, codes

@@ -8,7 +8,8 @@ They carry a leading problem axis: ``x`` is ``(..., N, D)``,
 centroid valid), and ``weights`` may be None (every weight 1). The scalar
 quantizer and the packers take ``(P, N)`` values or codes, one range or
 one stream of words per problem. Flash attention takes the kernel's
-``(B·H, S, hd)`` layout. Adafactor's update takes one leaf's gradient in
+``(B·H, S, hd)`` layout, or the strided entry's ``(B, S, H, hd)`` views
+(``flash_attention_bshd_ref``). Adafactor's update takes one leaf's gradient in
 the reference's layout and its second moment. The SSD scan
 (``ssd_scan_ref``, the chunk loop of ``models/ssm.py``'s scan) takes
 x (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N) and h0.
@@ -166,6 +167,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         keep &= (pos[:, None] - pos[None, :]) < window
     scores = torch.where(keep, scores, NEG)
     return (torch.softmax(scores, -1) @ vf).to(q.dtype)
+
+
+def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, scale: float,
+                             window=None) -> torch.Tensor:
+    """``flash_attention_ref`` on the strided entry's layout: q (B, S, H,
+    hd), k and v (B, S, Kv, hd) -> (B, S, H, hd) contiguous, through
+    (B·H, S, hd) copies."""
+    b, s, h, hd = q.shape
+    out = flash_attention_ref(
+        *(t.transpose(1, 2).reshape(b * t.shape[2], s, hd)
+          for t in (q, k, v)),
+        num_q_heads=h, num_kv_heads=k.shape[2], scale=scale, window=window)
+    return out.reshape(b, h, s, hd).transpose(1, 2).contiguous()
 
 
 def adafactor_update_ref(g: torch.Tensor, v: Dict[str, torch.Tensor], *,

@@ -13,8 +13,8 @@ upcasts in registers, exactly), on one of two routes picked by
 4-value loads: a persistent grid, 4 values per load, 16-byte stores) and
 ``scalar`` (ragged N, misaligned views: one value per thread per step).
 
-On a CPU tensor a wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. The kernels compute the plain versions'
+A wrapper launches its kernel or raises, a CPU tensor included (``ops``
+takes the plain versions there). The kernels compute the plain versions'
 arithmetic bit for bit: codes and recon of ``scalar_quantize`` (on both
 routes), and the words of ``pack_codes``, are equal, not close.
 
@@ -37,8 +37,8 @@ VEC_THREADS = 256   # vec route: threads per block
 VEC_TILE = 4 * VEC_THREADS   # vec route: values a block takes per step
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_QUANTIZE_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
-_PACK_ARGTYPES = [_P] * 2 + [_I] * 4 + [_P]
+_QUANTIZE_ARGTYPES = [_P] * 5 + [_I] * 6
+_PACK_ARGTYPES = [_P] * 2 + [_I] * 4
 
 
 def _check(name: str, dtypes, *tensors: torch.Tensor) -> None:
@@ -59,15 +59,6 @@ def _check(name: str, dtypes, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: lo and scale must be contiguous f32 "
                              f"({first.shape[0]},) tensors on "
                              f"{first.device}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
 
 
 def scalar_route(x: torch.Tensor) -> str:
@@ -101,39 +92,30 @@ def scalar_quantize_kernel(x: torch.Tensor, lo: torch.Tensor,
     if route not in (None, "scalar"):
         raise ValueError(f"scalar_quantize: route {route!r} is not None or "
                          f"'scalar'")
-    if x.device.type == "cpu":
-        return ref.scalar_quantize_ref(x, lo, scale, bits)
     _check("scalar_quantize", (torch.float32, torch.bfloat16), x, lo, scale)
     if not 1 <= bits <= 16:
         raise ValueError(f"scalar_quantize: bits={bits} not in [1, 16]")
     vec = route is None and scalar_route(x) == "vec"
     blocks = vec_grid(x) if vec else 0
     p, n = x.shape
-    lib = _build.load("scalar_quant", "scalar_quantize_launch",
-                      _QUANTIZE_ARGTYPES)
     codes = torch.empty((p, n), device=x.device, dtype=torch.int32)
     recon = torch.empty((p, n), device=x.device, dtype=torch.float32)
-    _raise_on("scalar_quantize", lib.scalar_quantize_launch(
-        x.data_ptr(), lo.data_ptr(), scale.data_ptr(), codes.data_ptr(),
-        recon.data_ptr(), p, n, bits, int(vec),
-        int(x.dtype == torch.bfloat16), blocks, _stream(x)))
+    _build.launch("scalar_quant", "scalar_quantize_launch",
+                  _QUANTIZE_ARGTYPES, x, lo, scale, codes, recon, p, n, bits,
+                  int(vec), int(x.dtype == torch.bfloat16), blocks)
     _build.count("scalar_quantize")
     return codes, recon
 
 
 def pack_codes_kernel(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """codes (P, N) int32 -> words (P, ⌈N·bits/32⌉) int32 bit patterns."""
-    if codes.device.type == "cpu":
-        return ref.pack_codes_ref(codes, bits)
     _check("pack_codes", (torch.int32,), codes)
     per_word = ref._check_pack_bits(bits)
     p, n = codes.shape
     nwords = -(-n // per_word)
-    lib = _build.load("scalar_quant", "pack_codes_launch", _PACK_ARGTYPES)
     words = torch.empty((p, nwords), device=codes.device, dtype=torch.int32)
-    _raise_on("pack_codes", lib.pack_codes_launch(
-        codes.data_ptr(), words.data_ptr(), p, n, nwords, bits,
-        _stream(codes)))
+    _build.launch("scalar_quant", "pack_codes_launch", _PACK_ARGTYPES,
+                  codes, words, p, n, nwords, bits)
     _build.count("pack_codes")
     return words
 
@@ -141,18 +123,14 @@ def pack_codes_kernel(codes: torch.Tensor, bits: int) -> torch.Tensor:
 def unpack_codes_kernel(words: torch.Tensor, count: int,
                         bits: int) -> torch.Tensor:
     """words (P, W) int32 bit patterns -> codes (P, count) int32."""
-    if words.device.type == "cpu":
-        return ref.unpack_codes_ref(words, count, bits)
     _check("unpack_codes", (torch.int32,), words)
     per_word = ref._check_pack_bits(bits)
     p, nwords = words.shape
     if count > nwords * per_word:
         raise ValueError(f"unpack_codes: {nwords} words hold at most "
                          f"{nwords * per_word} codes, not {count}")
-    lib = _build.load("scalar_quant", "unpack_codes_launch", _PACK_ARGTYPES)
     codes = torch.empty((p, count), device=words.device, dtype=torch.int32)
-    _raise_on("unpack_codes", lib.unpack_codes_launch(
-        words.data_ptr(), codes.data_ptr(), p, count, nwords, bits,
-        _stream(words)))
+    _build.launch("scalar_quant", "unpack_codes_launch", _PACK_ARGTYPES,
+                  words, codes, p, count, nwords, bits)
     _build.count("unpack_codes")
     return codes

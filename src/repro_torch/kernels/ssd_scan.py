@@ -40,23 +40,9 @@ STATE_SIZES = (64, 128)  # N they take
 MAX_CHUNK = 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# each launcher's arguments; the stream, last, is added by _launch
-_ARGTYPES = {
-    "ssd_fwd_launch": [_P] * 12 + [_I] * 5 + [_L] * 2,
-    "ssd_bwd_launch": [_P] * 24 + [_I] * 5 + [_L] * 2,
-}
-
-
-def _launch(name: str, *args) -> None:
-    """Launcher ``name`` on the current stream: tensors pass as their data
-    pointers, None as a null pointer; raises on a CUDA error."""
-    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
-    lib = _build.load("ssd_scan", name, _ARGTYPES[name] + [_P])
-    rc = getattr(lib, name)(
-        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan: {name} failed with CUDA error {rc}")
+# each launcher's arguments (the stream, last, is added by _build.launch)
+_FWD = [_P] * 12 + [_I] * 5 + [_L] * 2
+_BWD = [_P] * 24 + [_I] * 5 + [_L] * 2
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -123,8 +109,9 @@ def _forward(xh, dt, A, Bm, Cm, h0, chunk):
     states = torch.empty((B, nc, H, P, N), **f32)
     hlast = torch.empty((B, H, P, N), **f32)
     y = torch.empty_like(xh)
-    _launch("ssd_fwd_launch", xh, dt, A, Bm, Cm, h0, cum, cb, cbt, states,
-            hlast, y, B, S, H, N, chunk, Bm.stride(0), Bm.stride(1))
+    _build.launch("ssd_scan", "ssd_fwd_launch", _FWD, xh, dt, A, Bm, Cm, h0,
+                  cum, cb, cbt, states, hlast, y, B, S, H, N, chunk,
+                  Bm.stride(0), Bm.stride(1))
     _build.count("ssd_scan")
     return y, hlast, (cum, cb, cbt, states)
 
@@ -144,10 +131,10 @@ def _backward(xh, dt, A, Bm, Cm, cum, cb, cbt, states, dy, dhlast, chunk):
         torch.empty_like(A)
     dB = torch.empty((B, S, N), device=xh.device, dtype=torch.bfloat16)
     dC = torch.empty_like(dB)
-    _launch("ssd_bwd_launch", xh, dt, A, Bm, Cm, cum, cb, cbt, states, dy,
-            dhlast, G, t4, dc_inter, db_inter, dcb, dcbt, dh0, dx, ddt,
-            dapart, dA, dB, dC, B, S, H, N, chunk, Bm.stride(0),
-            Bm.stride(1))
+    _build.launch("ssd_scan", "ssd_bwd_launch", _BWD, xh, dt, A, Bm, Cm, cum,
+                  cb, cbt, states, dy, dhlast, G, t4, dc_inter, db_inter,
+                  dcb, dcbt, dh0, dx, ddt, dapart, dA, dB, dC, B, S, H, N,
+                  chunk, Bm.stride(0), Bm.stride(1))
     _build.count("ssd_scan_bwd")
     return dx, ddt, dA, dB, dC, dh0
 

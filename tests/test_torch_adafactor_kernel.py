@@ -145,19 +145,22 @@ def test_plain_version_all_leaves_at_once_bitwise():
 
 
 def test_kernel_wrapper_takes_the_plain_version_on_cpu():
-    """On a CPU tensor the kernel's wrapper and ``ops`` compute the plain
-    version (a non-contiguous view included), and launch nothing."""
+    """On a CPU tensor ``ops`` computes the plain version (a
+    non-contiguous view included) and launches nothing; the kernel's own
+    entry raises there."""
     r = np.random.default_rng(3)
     g = torch.from_numpy(r.standard_normal((40, 24)).astype(np.float32))
     v = {"row": torch.rand(40), "col": torch.rand(24)}
     kw = dict(beta=0.5, one_minus=0.5, lr=0.01, eps=EPS, clip=1.0)
     _build.reset_launch_counts()
     want = ref.adafactor_update_ref(g, v, **kw)
-    for got in (adafactor_update_kernel(g, v, **kw),
+    for got in (ops.adafactor_update(g, v, **kw),
                 ops.adafactor_update(g.t().contiguous().t(), v, **kw)):
         assert _same(got[0], want[0])
         for part in v:
             assert _same(got[1][part], want[1][part])
+    with pytest.raises(ValueError, match="CUDA"):
+        adafactor_update_kernel(g, v, **kw)
     assert _build.launch_counts() == {}
 
 
@@ -314,10 +317,11 @@ SHARDED = [((64, 40), torch.bfloat16, (Shard(1), Replicate()), True),
 WORLD = 4
 
 
-def _torch_launch(name, *a):
+def _torch_launch(lib, name, argtypes, *a):
     """The launchers of ``csrc/adafactor.cu`` in plain torch on CPU
-    tensors, so that the stages and the sums added over the mesh between
-    them run without a card."""
+    tensors (in ``_build.launch``'s place), so that the stages and the sums
+    added over the mesh between them run without a card."""
+    assert lib == "adafactor" and len(argtypes) == len(a), name
     def unit(g, row, col, total, nmat, rows, cols, mean_div, eps):
         m = (total / mean_div).clamp_min(eps).view(nmat, 1, 1)
         rms = (row.reshape(nmat, rows, 1) * col.reshape(nmat, 1, cols)
@@ -402,7 +406,7 @@ def _sharded_rank(rank, store, device, world):
     torch.set_num_threads(1)
     dev = torch.device(device)
     if device == "cpu":
-        kernel._launch = _torch_launch
+        _build.launch = _torch_launch
         whole = ref.adafactor_update_ref if world > 1 else (
             lambda g, v, **kw: kernel._run(g, v, tuple(g.shape),
                                            kernel._no_sum, **kw))

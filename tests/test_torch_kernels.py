@@ -46,6 +46,8 @@ from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
                                               scalar_route,
                                               unpack_codes_kernel)
+from repro_torch.kernels.adafactor import adafactor_update_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 
@@ -197,8 +199,8 @@ def test_lloyd_update_unweighted_is_all_ones_weights():
     ds, ct = tops.lloyd_update(_t(x), _t(c))
     ds1, ct1 = tops.lloyd_update(_t(x), _t(c), torch.ones(3, 257))
     assert torch.equal(ds, ds1) and torch.equal(ct, ct1)
-    ds_k, ct_k = lloyd_update_kernel(_t(x), None, _t(c))
-    assert torch.equal(ds, ds_k) and torch.equal(ct, ct_k)
+    ds_r, ct_r = tref.lloyd_update_ref(_t(x), None, _t(c))
+    assert torch.equal(ds, ds_r) and torch.equal(ct, ct_r)
 
 
 def _bf16_inputs(seed, p, n, d, l):
@@ -270,23 +272,32 @@ def test_row_route_and_d8_grid():
     assert d8_blocks(1, 0, 132, 4, 512, 2) == 1
 
 
+def _record(seen, name, result):
+    """``result`` that first keeps its arguments in ``seen[name]``."""
+    def fn(*args):
+        seen[name] = args
+        return result(*args)
+    return fn
+
+
+def _kernel_route_on_cpu(monkeypatch):
+    """``ops.use_kernel`` sending every call but a "torch" one to the
+    kernels, as it does for CUDA tensors."""
+    monkeypatch.setattr(tops, "use_kernel",
+                        lambda t, backend="auto": backend != "torch")
+
+
 def test_ops_pass_the_codebook_unpadded_and_no_weights(monkeypatch):
     """The k-means wrappers hand the kernels the codebook as it is, with no
     mask, and lloyd_update no weights unless given; x keeps its dtype."""
     seen = {}
-
-    def record(name, result):
-        def fn(*args):
-            seen[name] = args
-            return result(*args)
-        return fn
-
+    _kernel_route_on_cpu(monkeypatch)
     monkeypatch.setattr(tops, "lloyd_update_kernel",
-                        record("lloyd", lloyd_update_kernel))
+                        _record(seen, "lloyd", tref.lloyd_update_ref))
     monkeypatch.setattr(tops, "pq_quantize_kernel",
-                        record("pq", pq_quantize_kernel))
+                        _record(seen, "pq", tref.pq_quantize_ref))
     monkeypatch.setattr(tops, "kmeans_assign_kernel",
-                        record("assign", kmeans_assign_kernel))
+                        _record(seen, "assign", tref.kmeans_assign_ref))
     x, c = _inputs(23, 2, 50, 8, 3)
     xb = _t(x).to(torch.bfloat16)
     tops.lloyd_update(xb, _t(c))
@@ -507,9 +518,8 @@ def test_scalar_vec_grid_and_forced_route(monkeypatch):
         ("scalar_quant", "scalar_quantize_vec_occupancy", 0)}
     v = torch.zeros(2, 8)
     lo, scale = torch.zeros(2), torch.ones(2)
-    forced = scalar_quantize_kernel(v, lo, scale, 4, "scalar")
-    plain = tref.scalar_quantize_ref(v, lo, scale, 4)
-    assert all(torch.equal(a, b) for a, b in zip(forced, plain))
+    with pytest.raises(ValueError, match="CUDA"):
+        scalar_quantize_kernel(v, lo, scale, 4, "scalar")
     with pytest.raises(ValueError, match="route"):
         scalar_quantize_kernel(v, lo, scale, 4, "vec")
 
@@ -518,17 +528,11 @@ def test_ops_hand_bf16_to_kmeans_assign_and_scalar_quantize(monkeypatch):
     """ops.kmeans_assign and ops.scalar_quantize hand a bf16 x to the
     kernels as it is: the same tensor, no f32 copy."""
     seen = {}
-
-    def record(name, result):
-        def fn(*args):
-            seen[name] = args
-            return result(*args)
-        return fn
-
+    _kernel_route_on_cpu(monkeypatch)
     monkeypatch.setattr(tops, "kmeans_assign_kernel",
-                        record("assign", kmeans_assign_kernel))
+                        _record(seen, "assign", tref.kmeans_assign_ref))
     monkeypatch.setattr(tops, "scalar_quantize_kernel",
-                        record("scalar", scalar_quantize_kernel))
+                        _record(seen, "scalar", tref.scalar_quantize_ref))
     x, c = _inputs(37, 2, 50, 8, 3)
     xb = _t(x).to(torch.bfloat16)
     tops.kmeans_assign(xb, _t(c))
@@ -666,30 +670,120 @@ def test_pack_codes_pads_and_rejects_widths():
 # ---------------------------------------------------------------------------
 
 def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
+    """``ops``' wrappers take the plain versions for CPU tensors, a
+    non-contiguous view included."""
     x, c = _inputs(5, 3, 40, 8, 8)
-    lmask = torch.ones(8)
     w = torch.ones((3, 40))
+    xv = _t(x).transpose(0, 1).contiguous().transpose(0, 1)
+    assert not xv.is_contiguous()
     _build.reset_launch_counts()
-    ds, ct = lloyd_update_kernel(_t(x), w, _t(c), lmask)
-    ds_r, ct_r = tref.lloyd_update_ref(_t(x), w, _t(c), lmask)
-    zt, resid, codes = pq_quantize_kernel(_t(x), _t(c), lmask)
-    zt_r, resid_r, codes_r = tref.pq_quantize_ref(_t(x), _t(c), lmask)
+    ds, ct = tops.lloyd_update(xv, _t(c), w)
+    ds_r, ct_r = tref.lloyd_update_ref(_t(x), w, _t(c))
+    zt, resid, codes = tops.pq_quantize(xv, _t(c))
+    zt_r, resid_r, codes_r = tref.pq_quantize_ref(_t(x), _t(c))
     assert torch.equal(ds, ds_r) and torch.equal(ct, ct_r)
     assert torch.equal(zt, zt_r) and torch.equal(resid, resid_r)
     assert torch.equal(codes, codes_r)
-    codes_a, sq_a = kmeans_assign_kernel(_t(x), _t(c), lmask)
-    codes_ar, sq_ar = tref.kmeans_assign_ref(_t(x), _t(c), lmask)
+    codes_a, sq_a = tops.kmeans_assign(xv, _t(c))
+    codes_ar, sq_ar = tref.kmeans_assign_ref(_t(x), _t(c))
+    assert codes_a.dtype == torch.int32
     assert torch.equal(codes_a, codes_ar.to(torch.int32))
     assert torch.equal(sq_a, sq_ar)
     v = _t(x[:, :, 0])
     lo, scale = v.amin(-1), torch.full((3,), 0.1)
-    q, rec = scalar_quantize_kernel(v, lo, scale, 4)
+    q, rec = tops.scalar_quantize(v, lo, scale, 4)
     q_r, rec_r = tref.scalar_quantize_ref(v, lo, scale, 4)
     assert torch.equal(q, q_r) and torch.equal(rec, rec_r)
-    words = pack_codes_kernel(q, 4)
+    words = tops.pack_codes(q, 4)
     assert torch.equal(words, tref.pack_codes_ref(q, 4))
-    assert torch.equal(unpack_codes_kernel(words, 40, 4), q)
+    assert torch.equal(tops.unpack_codes(words, 40, 4), q)
     assert _build.launch_counts() == {}
+
+
+def _cpu_kernel_calls():
+    """Each ``*_kernel`` entry called on CPU tensors it would take on a
+    card."""
+    x, c = (_t(a) for a in _inputs(11, 2, 64, 8, 4))
+    v, lo, scale = x[:, :, 0].contiguous(), torch.zeros(2), torch.ones(2)
+    codes = torch.zeros((2, 16), dtype=torch.int32)
+    q, k, kv = (_t(_bh(a)) for a in _attention(3, 1, 32, 2, 1, 16))
+    qs, ks, vs = (_t(a) for a in _attention(3, 1, 32, 2, 1, 16))
+    ssd = (torch.zeros(1, 32, 2, 64, dtype=torch.bfloat16),
+           torch.zeros(1, 32, 2), torch.zeros(2),
+           torch.zeros(1, 32, 64, dtype=torch.bfloat16),
+           torch.zeros(1, 32, 64, dtype=torch.bfloat16), 16)
+    g, state = torch.zeros(8, 4), {"row": torch.zeros(8),
+                                   "col": torch.zeros(4)}
+    kw = dict(beta=0.5, one_minus=0.5, lr=0.1, eps=1e-30, clip=1.0)
+    return {
+        "lloyd_update": lambda: lloyd_update_kernel(x, None, c),
+        "kmeans_assign": lambda: kmeans_assign_kernel(x, c),
+        "pq_quantize": lambda: pq_quantize_kernel(x, c),
+        "scalar_quantize": lambda: scalar_quantize_kernel(v, lo, scale, 8),
+        "pack_codes": lambda: pack_codes_kernel(codes, 4),
+        "unpack_codes": lambda: unpack_codes_kernel(codes, 16, 4),
+        "adafactor_update": lambda: adafactor_update_kernel(g, state, **kw),
+        "flash_attention": lambda: flash_attention_kernel(
+            q, k, kv, num_q_heads=2, num_kv_heads=1, scale=0.25),
+        "flash_attention_bshd": lambda: flash_attention_bshd(
+            qs, ks, vs, scale=0.25),
+        "ssd_scan": lambda: ssd_scan_kernel(*ssd),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "lloyd_update", "kmeans_assign", "pq_quantize", "scalar_quantize",
+    "pack_codes", "unpack_codes", "adafactor_update", "flash_attention",
+    "flash_attention_bshd", "ssd_scan"])
+def test_kernel_entries_raise_on_cpu_tensors(entry):
+    """No fallback below ``ops``: every ``*_kernel`` entry raises on a CPU
+    tensor, before it loads a library, and launches nothing."""
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        _cpu_kernel_calls()[entry]()
+    assert _build.launch_counts() == {}
+
+
+def test_launch_passes_pointers_and_the_stream_and_raises_on_errors(
+        monkeypatch):
+    """``_build.launch``: the launcher typed with the stream's c_void_p
+    last; tensors as their data pointers, None as a null pointer, numbers
+    as they are, the current stream of the first tensor's device last; a
+    nonzero return raises with the library, launcher and code."""
+    calls, typed = [], []
+
+    class Launcher:
+        rc = 0
+
+        def __call__(self, *args):
+            calls.append(args)
+            return self.rc
+
+    launcher = Launcher()
+
+    def load(name, fn, argtypes):
+        typed.append((name, fn, list(argtypes)))
+        return type("Lib", (), {fn: staticmethod(launcher)})
+
+    class Stream:
+        cuda_stream = 0xABC
+
+    asked = []
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: asked.append(device) or Stream())
+    a, b = torch.zeros(4), torch.ones(2, 3)
+    _build.launch("lib", "fn_launch", [ctypes.c_void_p] * 3
+                  + [ctypes.c_int, ctypes.c_float], a, None, b, 7, 0.5)
+    assert typed == [("lib", "fn_launch", [ctypes.c_void_p] * 3
+                      + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])]
+    assert calls == [(a.data_ptr(), None, b.data_ptr(), 7, 0.5, 0xABC)]
+    assert asked == [a.device]
+    launcher.rc = 700
+    with pytest.raises(RuntimeError,
+                       match="^lib: fn_launch failed with CUDA error 700$"):
+        _build.launch("lib", "fn_launch", [ctypes.c_void_p], b)
+    assert len(calls) == 2 and asked[-1] == b.device
 
 
 def test_load_types_every_launcher_once(monkeypatch):
@@ -829,7 +923,7 @@ def test_flash_attention_cpu_wrapper_is_the_plain_version():
     q, k, v = (_t(_bh(a)) for a in _attention(7, 2, 40, 4, 2, 8))
     kw = dict(num_q_heads=4, num_kv_heads=2, scale=0.3, window=9)
     _build.reset_launch_counts()
-    out = flash_attention_kernel(q, k, v, **kw)
+    out = tops.flash_attention(q, k, v, **kw)
     assert torch.equal(out, tref.flash_attention_ref(q, k, v, **kw))
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
     assert not qt.is_contiguous()
@@ -869,7 +963,7 @@ def test_flash_attention_strided_entry_matches_jax(b, s, h, kv, hd, window):
     within the reference's flash tolerance (rtol 2e-4, atol 2e-5)."""
     q, k, v = _attention(s + 2 * hd, b, s, h, kv, hd)
     kw = dict(scale=1.0 / np.sqrt(hd), window=window)
-    got = flash_attention_bshd(*_strided_views(q, k, v), **kw)
+    got = tops.flash_attention_strided(*_strided_views(q, k, v), **kw)
     assert got.shape == (b, s, h, hd) and got.is_contiguous()
     want = jops.flash_attention(jnp.asarray(_bh(q)), jnp.asarray(_bh(k)),
                                 jnp.asarray(_bh(v)), num_q_heads=h,

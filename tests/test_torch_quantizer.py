@@ -21,6 +21,8 @@ from repro_torch.core import correction as tcorr
 from repro_torch.core import kmeans as tkm
 from repro_torch.core import quantizer as tq
 from repro_torch.core import split as tsplit
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.optim import constant, sgd as tsgd
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -163,11 +165,16 @@ def test_keyed_seeding_is_kmeans_plus_plus():
 
 
 def test_backend_registry():
-    assert set(tkm.available_backends()) == {"torch", "cuda", "auto"}
-    assert tkm.resolve_backend("auto", torch.device("cpu")) == "torch"
-    assert tkm.resolve_backend("auto", torch.device("cuda")) == "cuda"
+    """The backend names, their check and "auto"'s resolution live in
+    ``kernels/ops``: "torch" takes the plain versions on any device."""
+    assert set(tops.BACKENDS) == {"torch", "cuda", "auto"}
+    assert tops.resolve_backend("auto", torch.device("cpu")) == "torch"
+    assert tops.resolve_backend("auto", torch.device("cuda")) == "cuda"
+    assert tops.resolve_backend("cuda", torch.device("cpu")) == "cuda"
+    x = torch.zeros(1, 4, 2)
+    assert not tops.use_kernel(x) and not tops.use_kernel(x, "torch")
     with pytest.raises(ValueError):
-        tkm.get_backend("pallas", torch.device("cpu"))
+        tops.use_kernel(x, "pallas")
     with pytest.raises(ValueError):
         tq.PQConfig(4, 2, backend="triton")
 
@@ -181,22 +188,30 @@ def test_cuda_backend_raises_on_cpu_tensors():
         tkm.batched_kmeans(z.reshape(1, -1, 8), 2, 1, backend="cuda")
 
 
+def _kernel_route_on_cpu(monkeypatch):
+    """``ops.use_kernel`` sending every call but a "torch" one to the
+    kernels, as it does for CUDA tensors."""
+    monkeypatch.setattr(tops, "use_kernel",
+                        lambda t, backend="auto": backend != "torch")
+
+
 def test_cuda_backend_lloyd_pads_nothing_and_builds_no_weights(monkeypatch):
     """On "cuda" every Lloyd update gets x as it came (its rows and dtype,
     no chunk padding) and no weights; on "torch" the rows are padded to the
     chunk and carry 0/1 weights. The centroids agree to f32 rounding."""
     seen = []
-    cuda = tkm._REGISTRY["cuda"]
 
-    def update(x, weights, cents):
+    def update(x, cents, weights=None):
         seen.append((tuple(x.shape), x.dtype, weights))
-        return tkm._update_torch(x, weights, cents)
+        return tref.lloyd_update_ref(x, weights, cents)
 
-    monkeypatch.setitem(tkm._REGISTRY, "cuda", cuda._replace(update=update))
+    _kernel_route_on_cpu(monkeypatch)
+    monkeypatch.setattr(tops, "lloyd_update", update)
     x = torch.from_numpy(_acts(8, 3, 700, 8)).to(torch.bfloat16)
     cents = tkm.batched_lloyd(x, 4, 3, chunk=256, backend="cuda")
     assert seen == [((3, 700, 8), torch.bfloat16, None)] * 3
     ref = tkm.batched_lloyd(x, 4, 3, chunk=256, backend="torch")
+    assert len(seen) == 3
     assert cents.dtype == torch.float32
     np.testing.assert_allclose(cents.numpy(), ref.numpy(), **TOL)
 
@@ -206,23 +221,25 @@ def test_cuda_backend_kmeans_reads_x_as_it_comes(monkeypatch):
     assignment the caller's x itself (a bf16 x stays bf16: no f32 copy);
     the result is that of the "torch" backend."""
     seen = []
-    cuda = tkm._REGISTRY["cuda"]
 
-    def update(x, weights, cents):
+    def update(x, cents, weights=None):
         seen.append(("update", x))
-        return tkm._update_torch(x, weights, cents)
+        return tref.lloyd_update_ref(x, weights, cents)
 
-    def assign_dist(x, cents):
+    def assign(x, cents):
         seen.append(("assign", x))
-        return tkm._assign_dist_torch(x, cents)
+        codes, sqdist = tref.kmeans_assign_ref(x, cents)
+        return codes.to(torch.int32), sqdist
 
-    monkeypatch.setitem(tkm._REGISTRY, "cuda", cuda._replace(
-        update=update, assign_dist=assign_dist))
+    _kernel_route_on_cpu(monkeypatch)
+    monkeypatch.setattr(tops, "lloyd_update", update)
+    monkeypatch.setattr(tops, "kmeans_assign", assign)
     x = torch.from_numpy(_acts(38, 2, 500, 8)).to(torch.bfloat16)
     res = tkm.batched_kmeans(x, 4, 3, backend="cuda")
     assert [kind for kind, _ in seen] == ["update"] * 3 + ["assign"]
     assert all(t is x for _, t in seen)
     ref = tkm.batched_kmeans(x, 4, 3, backend="torch")
+    assert len(seen) == 4
     assert torch.equal(res.codes, ref.codes)
     np.testing.assert_allclose(res.centroids.float().numpy(),
                                ref.centroids.float().numpy(), rtol=2.0 ** -8)
