@@ -165,8 +165,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 routes, falling losses, the step time, tokens/s, peak
                 memory and busy share; one step of Granite-4.0-H-Small
                 at the benchmark cell's cut (20 layers, 18 of 72 experts
-                held) on the SSD kernels, their launches counted (3
-                forwards and a backward an SSM layer); then
+                held) on the SSD and MoE kernels, their launches
+                counted (3 forwards and a backward an SSM layer; a
+                backward and one to 3 forwards an MoE layer); then
                 launch/serve.py on Mamba2-1.3B (4 x 2048 prompt, 16
                 decode steps) and its SSM cache handoff against the
                 forward;
@@ -222,6 +223,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                 of x, dt, A, B and C each no further from the f32 plain
                 route than the bf16 plain route is, and its launches
                 counted in one Granite training step (lm_ssd_step);
+                the MoE dispatch and combine at the two LM cells' shapes
+                (Granite's 32768 tokens, top 10, 18 of 72 experts held,
+                D 4096; Mixtral's 16384 tokens, top 2 of 8, D 6144;
+                bf16), the ops wrappers on the card beside the plain
+                versions on the same inputs, forward and backward: the
+                expert buffer, y and the experts' output gradient
+                bitwise, x's and the gates' gradients no further from
+                f64 than the plain route's; their launches counted in the
+                Granite step and the MoE run;
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or away
@@ -519,7 +529,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = ["lloyd_update", "pq_quantize", "kmeans_assign", "scalar_quant",
-            "flash_attention", "adafactor", "ssd_scan"]
+            "flash_attention", "adafactor", "ssd_scan", "moe_dispatch"]
     infos = _build.build(libs)
     for name, info in infos.items():
         say("build", f"{name}: {info.path.name} in {info.seconds:.1f} s")
@@ -3536,12 +3546,13 @@ def phase_lm_train(seed, dev="cuda"):
     counts, the kernels' max |err| at the three cuts, the main run's
     losses, final params on the host and step time, the Adafactor kernel's
     launches in the MoE run, the SSD kernels' launches in the Granite
-    step)."""
+    step, the MoE kernels' launches in the MoE run ("mixtral") and the
+    Granite step ("granite"))."""
     import math
     from repro_torch.core.fedlite import flat_params
     from repro_torch.launch.specs import make_model
     torch.backends.cuda.matmul.allow_tf32 = False
-    main_counts, errs, adafactor_launches = {}, {}, 0
+    main_counts, errs, adafactor_launches, moe_launches = {}, {}, 0, {}
     for tag, cfg, via_cli, steps in lm_runs():
         t0 = time.perf_counter()
         loss1, e = lm_hold(tag, cfg, seed, dev)
@@ -3557,6 +3568,7 @@ def phase_lm_train(seed, dev="cuda"):
         if cfg.optimizer == "adafactor":   # one launch a leaf a step
             want["adafactor_update"] = steps * len(flat_params(
                 make_model(cfg).init(None, "meta")))
+        want.update(lm_moe_counts(cfg, steps))
         losses = [float(h["loss"]) for h in hist]
         secs = [h["seconds"] for h in hist]
         step_s = statistics.median(secs[1:-1])
@@ -3590,12 +3602,33 @@ def phase_lm_train(seed, dev="cuda"):
             main_counts = counts
             main_run = {"loss": losses, "params": params, "step_s": step_s}
         adafactor_launches += counts.get("adafactor_update", 0)
+        if cfg.num_experts:
+            moe_launches["mixtral"] = {k: v for k, v in counts.items()
+                                       if k.startswith("moe_")}
         del hist
         torch.cuda.empty_cache()
-    ssd_counts = lm_ssd_step(seed, dev)
+    ssd_counts, moe_launches["granite"] = lm_ssd_step(seed, dev)
     torch.cuda.empty_cache()
     phase_ssm_serve(seed, dev)
-    return main_counts, errs, main_run, adafactor_launches, ssd_counts
+    return (main_counts, errs, main_run, adafactor_launches, ssd_counts,
+            moe_launches)
+
+
+def lm_moe_counts(cfg, steps):
+    """The MoE kernels' launches in ``steps`` training steps of a config
+    whose period is one block (the MoE run's): a dispatch and a combine
+    each forward of each MoE layer (one forward, and one more under the
+    period remat), their backwards once a step; none without experts."""
+    from repro_torch.launch.specs import make_model
+    if not cfg.num_experts:
+        return {}
+    if cfg.period != 1:
+        fail(f"lm_moe_counts: a period of {cfg.period} blocks (the nested "
+             f"remat's recomputes end early, so its count is not one rule)")
+    n_moe = cfg.num_layers if make_model(cfg)._pos_is_moe(0) else 0
+    fwd, bwd = (1 + cfg.remat) * n_moe * steps, n_moe * steps
+    return {"moe_dispatch": fwd, "moe_combine": fwd,
+            "moe_dispatch_bwd": bwd, "moe_combine_bwd": bwd}
 
 
 def lm_ssd_step(seed, dev="cuda"):
@@ -3603,18 +3636,27 @@ def lm_ssd_step(seed, dev="cuda"):
     cut (LM_SSD_LAYERS layers, LM_SSD_EXPERTS_HELD experts held; x, B
     and C bf16, dt and A f32, 128 heads of 64, state 128, chunk 256)
     through launch/train.py: ``apply_ssm`` -> ``ssm.ssd_scan`` ->
-    ``ops.ssd_scan``, B and C sliced from one conv output. The launch
-    counts are reset just before it: LM_SSD_FORWARDS ``ssd_scan`` and one
-    ``ssd_scan_bwd`` an SSM layer, or the step missed the kernel route.
-    Returns the SSD kernels' launch counts."""
+    ``ops.ssd_scan``, B and C sliced from one conv output; its MoE
+    layers' dispatch and combine through ``ops.moe_dispatch`` /
+    ``ops.moe_combine``. The launch counts are reset just before it:
+    LM_SSD_FORWARDS ``ssd_scan`` and one ``ssd_scan_bwd`` an SSM layer,
+    one ``moe_dispatch_bwd`` and one ``moe_combine_bwd`` an MoE layer, and
+    as many ``moe_dispatch`` as ``moe_combine``, one to LM_SSD_FORWARDS an
+    MoE layer (the nested remat's recomputes), or the step missed a
+    kernel route. Returns the SSD kernels' and the MoE kernels' launch
+    counts."""
     import dataclasses
     import math
     from repro_torch.configs import granite_4p0_h_small as granite
     from repro_torch.kernels import _build
     from repro_torch.launch import train
+    from repro_torch.launch.specs import make_model
     cfg = dataclasses.replace(granite.CONFIG, num_layers=LM_SSD_LAYERS,
                               experts_held=LM_SSD_EXPERTS_HELD)
     n_ssm = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == "ssm"
+                for i in range(cfg.num_layers))
+    model = make_model(cfg)
+    n_moe = sum(model._pos_is_moe(i % cfg.period)
                 for i in range(cfg.num_layers))
     argv = ["--arch", cfg.name, "--steps", "1", "--batch", str(LM_B),
             "--seq", str(LM_S), "--device", str(dev), "--seed", str(seed)]
@@ -3629,19 +3671,27 @@ def lm_ssd_step(seed, dev="cuda"):
     del state
     ssd = {k: counts.get(k, 0) for k in ("ssd_scan", "ssd_scan_bwd")}
     want = {"ssd_scan": LM_SSD_FORWARDS * n_ssm, "ssd_scan_bwd": n_ssm}
+    moe = {k: counts.get(k, 0) for k in ("moe_dispatch", "moe_combine",
+                                         "moe_dispatch_bwd",
+                                         "moe_combine_bwd")}
     loss = float(hist[0]["loss"])
     say("lm", f"SSD: {cfg.name} at {cfg.num_layers} layers ({n_ssm} "
-        f"Mamba-2), {cfg.experts_held} of {cfg.num_experts} experts held, "
-        f"chunk {cfg.ssm_chunk}, state {cfg.ssm_state}, decay f32 "
-        f"{cfg.ssm_decay_f32}; one step of {LM_B} x {LM_S} tokens in "
+        f"Mamba-2, {n_moe} MoE), {cfg.experts_held} of {cfg.num_experts} "
+        f"experts held, chunk {cfg.ssm_chunk}, state {cfg.ssm_state}, decay "
+        f"f32 {cfg.ssm_decay_f32}; one step of {LM_B} x {LM_S} tokens in "
         f"{step_s:.1f} s (init and first-call costs included), loss "
-        f"{loss:.4f}; SSD launches {ssd} (want {want}); all launches "
-        f"{counts}")
+        f"{loss:.4f}; SSD launches {ssd} (want {want}); MoE launches {moe} "
+        f"(want backwards {n_moe} each, forwards equal, {n_moe} to "
+        f"{LM_SSD_FORWARDS * n_moe}); all launches {counts}")
     if ssd != want:
         fail(f"lm SSD: SSD kernel launches {ssd} != {want}")
+    if not (n_moe and moe["moe_dispatch_bwd"] == moe["moe_combine_bwd"]
+            == n_moe and moe["moe_dispatch"] == moe["moe_combine"]
+            and n_moe <= moe["moe_dispatch"] <= LM_SSD_FORWARDS * n_moe):
+        fail(f"lm SSD: MoE kernel launches {moe} for {n_moe} MoE layers")
     if not math.isfinite(loss):
         fail(f"lm SSD: loss {loss} not finite")
-    return ssd
+    return ssd, moe
 
 
 # the production meshes' machinery (phase_sharded): the lm phase's Llama-3
@@ -3986,7 +4036,10 @@ def phase_profile(tag, run, n=3, unit="step", opens=False):
     window of ``n`` units. The window is all of ``run()``, or, with
     ``opens``, ``run(begin)`` from where it calls ``begin()`` to its end.
     Returns the device time of each kernel in ms per unit (empty where the
-    profiler saw no device)."""
+    profiler saw no device). The spans' ranges (``repro_torch.obs``'s
+    record_function marks, which the profiler also lays on the device's
+    timeline, over their kernels) are left out, as the benchmark's tracer
+    leaves them out: counted beside their kernels, they read over 100 %."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     opened = []
@@ -4004,7 +4057,8 @@ def phase_profile(tag, run, n=3, unit="step", opens=False):
     wall_ms = (time.perf_counter() - opened[0]) * 1e3
     prof.stop()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if dev_ms <= 0:
         say("times", f"{tag}: profiled {unit}: device time not measured (the "
@@ -4295,6 +4349,164 @@ def time_ssd_scan(lm_counts, seed):
              "plain_bwd_ms": pb_ms, "bound_ms": fb_ms, "bound_by": fb_by,
              "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by,
              "library_ms": None}]
+
+
+# the MoE kernels' shapes: the two LM cells' layers, one group each
+# (name, tokens, k of E experts, H held from first, D; bf16)
+MOE_SHAPES = (("granite", 32768, 10, 72, 18, 0, 4096),
+              ("mixtral", 16384, 2, 8, 8, 0, 6144))
+
+
+def moe_f64_grads(de, dy, out, dest, keep):
+    """x's and the gates' gradients of the dispatch and combine in f64
+    from the same bf16 cotangents and expert output: dx[t] = Σ_j keep ·
+    de[dest[t, j]] and dgate[t, j] = keep · Σ_d out[dest[t, j], d] ·
+    dy[t, d], one choice at a time."""
+    G, Ng, k = dest.shape
+    de = de.reshape(G, -1, de.shape[-1])
+    out = out.reshape(G, -1, out.shape[-1])
+    at = dest.clamp(max=de.shape[1] - 1)
+    g = torch.arange(G, device=dest.device)[:, None]
+    dx = torch.zeros((G, Ng, de.shape[-1]), dtype=torch.float64,
+                     device=de.device)
+    dgate = torch.zeros((G, Ng, k), dtype=torch.float64, device=de.device)
+    dy64 = dy.double()
+    for j in range(k):
+        kj = keep[:, :, j, None]
+        dx += torch.where(kj, de[g, at[:, :, j]].double(), 0.0)
+        dgate[:, :, j] = torch.where(
+            kj[..., 0], (out[g, at[:, :, j]].double() * dy64).sum(-1), 0.0)
+    return dx, dgate
+
+
+def time_moe_dispatch(launches, seed):
+    """The MoE dispatch and combine at the two LM cells' shapes (MOE_SHAPES;
+    capacity as ``moe.capacity_of`` gives it for the configuration, the
+    slots from random router logits by ``moe.dispatch_slots``): the
+    ``ops.moe_dispatch`` / ``ops.moe_combine`` wrappers on the card, each
+    beside its plain version (``ref.moe_dispatch_ref`` /
+    ``ref.moe_combine_ref``) on the same inputs. Held: the expert buffer,
+    y and the experts' output gradient ``torch.equal`` to the plain
+    route's; x's and the gates' gradients no farther from an f64
+    computation (moe_f64_grads) than the plain route's (relative L2).
+    Timed (CUDA events, eager, the host's launches included): each
+    forward and its backward (autograd.grad on one forward's graph),
+    beside the plain route's and the byte bound at 3.35 TB/s: the kept
+    pairs' rows read once, the slots and outputs written once, dest and
+    keep (9 B a pair), the gates and the slot map. ``launches``: the
+    kernels' in the Granite step (lm_ssd_step) and in the lm phase's MoE
+    run."""
+    import dataclasses
+    from repro_torch.configs import granite_4p0_h_small, mixtral_8x22b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    BF16 = torch.bfloat16
+    configs = {"granite": dataclasses.replace(
+        granite_4p0_h_small.CONFIG, experts_held=LM_SSD_EXPERTS_HELD),
+        "mixtral": mixtral_8x22b.CONFIG}
+    kernels = []
+    for tag, Ng, k, E, H, first, D in MOE_SHAPES:
+        cfg = configs[tag]
+        if (cfg.experts_per_token, cfg.num_experts, cfg.experts_held or E,
+                cfg.first_expert_held, cfg.d_model) != (k, E, H, first, D):
+            fail(f"moe_dispatch: MOE_SHAPES' {tag} is not its config")
+        C = moe.capacity_of(cfg, Ng)
+        slots, dump = H * C, 1 if H == E else moe.DUMP_ROWS
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        logits = torch.randn((1, Ng, E), generator=gen, device=dev)
+        gate_w, gate_idx = moe.top_k(torch.softmax(logits, -1), k)
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True)
+        dest, keep = moe.dispatch_slots(gate_idx, E, C, 0 if H == E else H,
+                                        first)
+        x, dy = (torch.randn((1, Ng, D), generator=gen, device=dev).to(BF16)
+                 for _ in range(2))
+        out, de = (torch.randn((1, H, C, D), generator=gen,
+                               device=dev).to(BF16) for _ in range(2))
+        if ops.moe_route(x) != "kernel":
+            fail(f"moe_dispatch: {tag}'s inputs do not take the kernel route")
+        routes = {
+            "kernel": (lambda xl: ops.moe_dispatch(xl, dest, keep, H, C, dump),
+                       lambda ol, wl: ops.moe_combine(ol, dest, wl, keep,
+                                                      dump)),
+            "plain": (lambda xl: ref.moe_dispatch_ref(xl, dest, H, C, dump),
+                      lambda ol, wl: ref.moe_combine_ref(ol, dest, wl, keep,
+                                                         dump))}
+        res = {}
+        for route, (disp, comb) in routes.items():
+            xl = x.clone().requires_grad_()
+            ol, wl = out.clone().requires_grad_(), \
+                gate_w.clone().requires_grad_()
+            with torch.no_grad():
+                fwd = (eager_ms(lambda: disp(x), calls=10),
+                       eager_ms(lambda: comb(out, gate_w), calls=10))
+            ebuf, y = disp(xl), comb(ol, wl)
+            dx, = torch.autograd.grad(ebuf, xl, de, retain_graph=True)
+            dout, dgate = torch.autograd.grad(y, (ol, wl), dy,
+                                              retain_graph=True)
+            bwd = (eager_ms(lambda: torch.autograd.grad(
+                ebuf, xl, de, retain_graph=True), calls=10),
+                eager_ms(lambda: torch.autograd.grad(
+                    y, (ol, wl), dy, retain_graph=True), calls=10))
+            res[route] = dict(fwd=fwd, bwd=bwd, ebuf=ebuf.detach(),
+                              y=y.detach(), dout=dout, dx=dx, dgate=dgate)
+            del ebuf, y, xl, ol, wl
+            torch.cuda.empty_cache()
+        got, plain = res["kernel"], res["plain"]
+        dx64, dgate64 = moe_f64_grads(de, dy, out, dest, keep)
+        gaps = {n: (rel_l2(got[n], w), rel_l2(plain[n], w))
+                for n, w in (("dx", dx64), ("dgate", dgate64))}
+        del dx64, dgate64
+        same = {n: torch.equal(got[n], plain[n]) for n in ("ebuf", "y",
+                                                           "dout")}
+        kept = int(keep.sum())
+        toks = int(keep.any(-1).sum())
+        row, meta = 2 * D, 9 * Ng * k
+        b_ms = {"dispatch": bound((kept + slots) * row + meta + 8 * slots,
+                                  0)[0],
+                "dispatch_bwd": bound((kept + Ng) * row + meta, 0)[0],
+                "combine": bound((kept + Ng) * row + meta + 4 * Ng * k,
+                                 0)[0],
+                "combine_bwd": bound((toks + kept + slots) * row + meta
+                                     + 8 * Ng * k + 8 * slots, 0)[0]}
+        shown = ", ".join(f"{n} {a:.3e} / {b:.3e}"
+                          for n, (a, b) in gaps.items())
+        say("times", f"moe_dispatch / moe_combine at {tag}'s shape ({Ng} "
+            f"tokens, k {k}, {H} of {E} experts held, capacity {C}, "
+            f"{slots} slots, {kept} pairs kept, D {D} bf16): dispatch "
+            f"{got['fwd'][0]:.3f} ms (plain {plain['fwd'][0]:.3f}; bound "
+            f"{b_ms['dispatch']:.3f}), its backward {got['bwd'][0]:.3f} ms "
+            f"(plain {plain['bwd'][0]:.3f}; bound {b_ms['dispatch_bwd']:.3f})"
+            f"; combine {got['fwd'][1]:.3f} ms (plain {plain['fwd'][1]:.3f}; "
+            f"bound {b_ms['combine']:.3f}), its backward "
+            f"{got['bwd'][1]:.3f} ms (plain {plain['bwd'][1]:.3f}; bound "
+            f"{b_ms['combine_bwd']:.3f}); bitwise the plain route {same}; "
+            f"relative L2 to f64, kernel / plain: {shown}; launches "
+            f"{launches.get(tag)} in the {tag} run")
+        if not all(same.values()):
+            fail(f"moe_dispatch: {tag}: not the plain route's bits: {same}")
+        over = [n for n, (a, b) in gaps.items() if not a <= b]
+        if over:
+            fail(f"moe_dispatch: {tag}: {over} farther from f64 than the "
+                 f"plain route: {shown}")
+        n_launch = launches.get(tag, {})
+        for i, name in enumerate(("moe_dispatch", "moe_combine")):
+            kernels.append({
+                "name": f"{name}/{tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                "replaces": None,
+                "launches": n_launch.get(name, 0)
+                + n_launch.get(f"{name}_bwd", 0),
+                "max_abs_err": 0.0, "ms": got["fwd"][i],
+                "bwd_ms": got["bwd"][i], "plain_ms": plain["fwd"][i],
+                "plain_bwd_ms": plain["bwd"][i],
+                "bound_ms": b_ms[name[4:]], "bound_by": "bytes",
+                "bwd_bound_ms": b_ms[f"{name[4:]}_bwd"],
+                "bwd_bound_by": "bytes", "library_ms": None})
+        del got, plain, res, x, dy, out, de
+        torch.cuda.empty_cache()
+    return kernels
 
 
 def time_flash(gen, counts, errs):
@@ -5284,7 +5496,7 @@ def main(argv=None) -> int:
         # LM training through launch/train.py: the main path of this slice
         # (lloyd_update's and pq_quantize's launches in the Llama run), the
         # SSM and MoE runs, and the Mamba2 serve
-        lm_counts, lm_errs, lm_main, lm_adafactor, lm_ssd = \
+        lm_counts, lm_errs, lm_main, lm_adafactor, lm_ssd, lm_moe = \
             phase_lm_train(args.seed)
         torch.cuda.empty_cache()
         mark("lm")
@@ -5309,6 +5521,7 @@ def main(argv=None) -> int:
     kernels += sharded_entries(kernels, sharded_counts)
     kernels += time_adafactor(lm_adafactor, args.seed)
     kernels += time_ssd_scan(lm_ssd, args.seed)
+    kernels += time_moe_dispatch(lm_moe, args.seed)
     say("times", f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

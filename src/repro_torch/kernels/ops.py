@@ -26,6 +26,10 @@ vmaps one problem per call, the kernels take all of them in one launch.
 ``ssd_scan`` takes ``models/ssm.ssd_scan``'s arguments and routes them
 itself (``ssd_scan_route``): the kernels where they take the inputs, the
 plain chunk loop for the rest.
+``moe_dispatch`` and ``moe_combine`` take ``models/moe.apply_moe``'s
+buffers and route them themselves (``moe_route``): the kernels for a CUDA
+tensor, which raise on what they do not take, the plain version through
+dump rows on the CPU.
 ``flash_attention`` takes the reference's (B·H, S, hd) layout and
 ``flash_attention_strided`` the projections' (B, S, H, hd) views, both at
 any S: the kernel masks its ragged last tile, so no padded copy is made.
@@ -50,6 +54,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_bshd,
                                                  flash_attention_kernel)
 from repro_torch.kernels.kmeans_assign import kmeans_assign_kernel
 from repro_torch.kernels.lloyd_update import lloyd_update_kernel
+from repro_torch.kernels.moe_dispatch import (moe_combine_kernel,
+                                              moe_dispatch_kernel)
 from repro_torch.kernels.pq_quantize import pq_quantize_kernel
 from repro_torch.kernels.scalar_quant import (pack_codes_kernel,
                                               scalar_quantize_kernel,
@@ -271,3 +277,42 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if ssd_scan_route(xh, dt, A, Bm, Cm, chunk, h0) == "kernel":
         return ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk, h0)
     return ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk, h0)
+
+
+def moe_route(rows: torch.Tensor) -> str:
+    """Which route ``moe_dispatch`` and ``moe_combine`` take: "kernel" for
+    a CUDA ``rows`` (x or the experts' output), else "plain". No fallback
+    on the card: the kernels raise on inputs they do not take
+    (``kernels/moe_dispatch.check``: bf16 or f32, D a multiple of 8 or
+    4)."""
+    return "kernel" if use_kernel(rows) else "plain"
+
+
+def moe_dispatch(xg: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                 held: int, capacity: int, dump: int) -> torch.Tensor:
+    """The expert buffer (G, held, capacity, D) of x (G, Ng, D): each kept
+    pair's row at its slot ``dest``, zeros elsewhere; on the route
+    ``moe_route`` names. ``dump`` is the plain route's dump rows past the
+    slots, where ``dest`` sends the dropped pairs; the kernels move no
+    dropped pair."""
+    _local("moe_dispatch", xg, dest, keep)
+    if moe_route(xg) == "plain":
+        return ref.moe_dispatch_ref(xg, dest, held, capacity, dump)
+    G, _, D = xg.shape
+    return moe_dispatch_kernel(xg, dest, keep, held * capacity).reshape(
+        G, held, capacity, D)
+
+
+def moe_combine(out_buf: torch.Tensor, dest: torch.Tensor,
+                gate_w: torch.Tensor, keep: torch.Tensor,
+                dump: int) -> torch.Tensor:
+    """y (G, Ng, D) from the experts' output (G, H, C, D): each token's
+    kept rows weighted by its gates (f32, rounded to the output's dtype)
+    and added in choice order, on the route ``moe_route`` names; the
+    kernel route's y is bitwise the plain route's."""
+    _local("moe_combine", out_buf, dest, gate_w, keep)
+    if moe_route(out_buf) == "plain":
+        return ref.moe_combine_ref(out_buf, dest, gate_w, keep, dump)
+    G, H, C, D = out_buf.shape
+    return moe_combine_kernel(out_buf.reshape(G, H * C, D), dest, keep,
+                              gate_w)

@@ -12,7 +12,9 @@ one stream of words per problem. Flash attention takes the kernel's
 (``flash_attention_bshd_ref``). Adafactor's update takes one leaf's gradient in
 the reference's layout and its second moment. The SSD scan
 (``ssd_scan_ref``, the chunk loop of ``models/ssm.py``'s scan) takes
-x (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N) and h0.
+x (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N) and h0. The
+MoE's dispatch and combine (``moe_dispatch_ref``, ``moe_combine_ref``)
+take one choice at a time, through the dump rows the caller gives.
 
 Assignment is written in the score form the kernels compute,
 ``argmax_l (2·x·c_l − ‖c_l‖²)`` -- the argmin of ``‖x − c_l‖²`` without
@@ -304,3 +306,37 @@ def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = chunk_decay[:, :, None, None] * h + state.to(h.dtype)
         ys.append(y_intra + y_inter)
     return torch.cat(ys, dim=1), h
+
+
+def moe_dispatch_ref(xg: torch.Tensor, dest: torch.Tensor, held: int,
+                     capacity: int, dump: int) -> torch.Tensor:
+    """The expert buffer (G, held, capacity, D) of x (G, Ng, D): the plain
+    route of ``ops.moe_dispatch``. Each choice is one indexed assignment
+    of the whole group into a zero-filled buffer of held·capacity slots
+    and ``dump`` dump rows (every kept destination is unique, so no sum
+    over an atomic ``index_add_`` whose order could vary); the dump rows,
+    where the dropped pairs went, are cut off."""
+    G, _, D = xg.shape
+    g = torch.arange(G, device=xg.device)[:, None]
+    buf = xg.new_zeros((G, held * capacity + dump, D))
+    for j in range(dest.shape[-1]):   # one choice at a time: no (Ng·k, D)
+        buf.index_put_((g, dest[:, :, j]), xg)
+    return buf[:, :-dump].reshape(G, held, capacity, D)
+
+
+def moe_combine_ref(out_buf: torch.Tensor, dest: torch.Tensor,
+                    gate_w: torch.Tensor, keep: torch.Tensor,
+                    dump: int) -> torch.Tensor:
+    """y (G, Ng, D) from the experts' output (G, H, C, D): the plain route
+    of ``ops.moe_combine``, one gather a choice from the output padded
+    with ``dump`` zero rows, each weighted by its gate (0 where dropped)
+    in the output's dtype and added in choice order."""
+    Gl, H, C, D = out_buf.shape
+    g = torch.arange(Gl, device=out_buf.device)[:, None]
+    padded = torch.cat([out_buf.reshape(Gl, H * C, D),
+                        out_buf.new_zeros((Gl, dump, D))], dim=1)
+    y = out_buf.new_zeros((Gl, dest.shape[1], D))
+    for j in range(dest.shape[-1]):    # one gather per choice
+        wj = (gate_w[:, :, j] * keep[:, :, j]).to(out_buf.dtype)
+        y = y + padded[g, dest[:, :, j]] * wj[:, :, None]
+    return y

@@ -24,9 +24,13 @@ Routing is the reference's, choice for choice:
     the same expert in the row-major order of the flattened (token,
     choice) list; a pair ranked at or past the capacity is dropped (sent
     to a dump row past the buffer, which is cut off);
-  * the scatter runs one choice at a time by indexed assignment (every
-    kept destination is unique, so no sum over an atomic ``index_add_``
-    whose order could vary), the combine one gather per choice;
+  * the dispatch puts each kept pair's row at its slot and the combine
+    adds each token's kept rows, weighted, in choice order
+    (``kernels/ops.moe_dispatch`` / ``moe_combine``): on the card two
+    hand-written kernels, each the other's backward, that move only the
+    kept pairs' rows; elsewhere the plain version, one indexed assignment
+    and one gather a choice through dump rows (``kernels/ref``). Every
+    kept destination is unique, so neither sums over atomics;
   * the Switch load-balance loss is taken over all tokens.
 
 Expert parallelism by configuration (``cfg.experts_held``, a
@@ -37,19 +41,22 @@ pairs routed to its own experts; the others are dropped here, as a pair
 past the capacity is. What it returns is its experts' part of the
 layer's output: the shares of disjoint held sets that cover the experts
 sum to the whole layer's. Most pairs are then dropped (three in four with
-a quarter of the experts held), so they go to ``DUMP_ROWS`` dump rows,
-spread by the pair's index, and not to one: the combine's gather then
-meets no index repeated hundreds of thousands of times, whose backward
-(a sorted accumulation, one index segment at a time) would run them one
-after another. Such a layer ranks the pairs by a stable sort of their
-experts, where the twinned configs take the one-hot running count: the
-same ranks, without a scan of Ng·k rows over E columns (126 ms a layer of
-72 experts at 32768 tokens on the H100, one launch).
+a quarter of the experts held); on the plain route they go to
+``DUMP_ROWS`` dump rows, spread by the pair's index, and not to one: the
+combine's gather then meets no index repeated hundreds of thousands of
+times, whose backward (a sorted accumulation, one index segment at a
+time) would run them one after another. The kernels read ``keep`` and
+move no dropped pair. Such a layer ranks the pairs by a stable sort of
+their experts, where the twinned configs take the one-hot running count:
+the same ranks, without a scan of Ng·k rows over E columns (126 ms a
+layer of 72 experts at 32768 tokens on the H100, one launch).
 
 Spans (``repro_torch.obs``): ``moe.route`` (the router, top-k, the slots
 and the balance loss), ``moe.dispatch`` (the scatter), ``moe.experts``
 (the expert products), ``moe.combine`` (the gathers), with k, the
-capacity and the experts held as their args.
+capacity and the experts held as their args; ``moe.dispatch`` and
+``moe.combine`` also with ``route`` ("kernel" or "plain",
+``ops.moe_route``).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding import ctx
 
@@ -211,16 +219,13 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
         ce = chosen.mean((0, 1))
         aux = E * (me * ce).sum() * cfg.router_aux_weight
 
-    def scatter(xg, dest):
-        g = torch.arange(xg.shape[0], device=xg.device)[:, None]
-        buf = xg.new_zeros((xg.shape[0], H * capacity + dump, D))
-        for j in range(k):    # one choice at a time: no (Ng·k, D) buffer
-            buf.index_put_((g, dest[:, :, j]), xg)
-        return buf[:, :-dump].reshape(xg.shape[0], H, capacity, D)
+    def scatter(xg, dest, keep):
+        return ops.moe_dispatch(xg, dest, keep, H, capacity, dump)
 
-    with obs.span("moe.dispatch", cat="moe", **args):
-        ebuf = ctx.local(scatter, ctx.P(*groups, None), (groups, groups))(
-            xg, dest)
+    with obs.span("moe.dispatch", cat="moe",
+                  route=ops.moe_route(xg), **args):
+        ebuf = ctx.local(scatter, ctx.P(*groups, None), (groups,) * 3)(
+            xg, dest, keep)
         ebuf = ctx.shard(ebuf, *buf_spec)                      # (G,H,C,D)
 
     def experts(ebuf, we_gate, we_up, we_down):
@@ -256,17 +261,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg):
         out_buf = ctx.shard(out_buf, *buf_spec)
 
     def combine(out_buf, dest, gate_w, keep):
-        Gl = out_buf.shape[0]
-        g = torch.arange(Gl, device=out_buf.device)[:, None]
-        padded = torch.cat([out_buf.reshape(Gl, H * capacity, D),
-                            out_buf.new_zeros((Gl, dump, D))], dim=1)
-        y = out_buf.new_zeros((Gl, Ng, D))
-        for j in range(k):    # one gather per choice
-            wj = (gate_w[:, :, j] * keep[:, :, j]).to(out_buf.dtype)
-            y = y + padded[g, dest[:, :, j]] * wj[:, :, None]
-        return y
+        return ops.moe_combine(out_buf, dest, gate_w, keep, dump)
 
-    with obs.span("moe.combine", cat="moe", **args):
+    with obs.span("moe.combine", cat="moe",
+                  route=ops.moe_route(out_buf), **args):
         y = ctx.local(combine, groups,
                       (ctx.P(*groups, None),) + (groups,) * 3)(
             out_buf, dest, gate_w, keep)

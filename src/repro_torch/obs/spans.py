@@ -30,7 +30,8 @@ path without taxing uninstrumented runs. The spans that exist:
     "kernel");
   * ``moe.route`` / ``moe.dispatch`` / ``moe.experts`` / ``moe.combine`` —
     an MoE layer's router and slots, its scatter, its expert products and
-    its gathers (``models/moe.py``; args: k, capacity, experts held), and
+    its gathers (``models/moe.py``; args: k, capacity, experts held, and
+    on the scatter and the gathers route "plain" or "kernel"), and
     ``moe.shared`` — the shared expert beside it
     (``models/transformer.py``; args: width). Under rematerialization a
     recomputed forward opens them again.

@@ -1039,7 +1039,9 @@ def test_lm_train_step_kernels_vs_plain_on_card(arch):
     """Two make_train_step steps of the smoke config on the card (f32,
     Adam, PQ at the cut), each from one state through lloyd_update and
     pq_quantize (4 + 1 launches a step) and on the plain versions (PQ
-    backend "torch", no launch): the two losses within 1e-4 relative (a
+    backend "torch", no launch of them; an MoE arch launches its
+    dispatch and combine kernels alike in both steps): the two losses
+    within 1e-4 relative (a
     PQ code may flip at a near-tie between the two Lloyd orders; the next
     state is the kernels' step's, since Adam turns such a flip into an
     lr-sized difference of the params)."""
@@ -1058,16 +1060,26 @@ def test_lm_train_step_kernels_vs_plain_on_card(arch):
         make_train_step(make_model(dataclasses.replace(cfg, pq_backend=b)),
                         adam(1e-3)) for b in ("auto", "torch"))
     state = TrainState.create(params, adam(1e-3))
+
+    def counts():
+        """(the cut kernels' launches, the MoE kernels'): the MoE takes
+        its kernels on the card whatever the PQ backend."""
+        c = _build.launch_counts()
+        moe = {k: v for k, v in c.items() if k.startswith("moe_")}
+        return {k: v for k, v in c.items() if k not in moe}, moe
     for s in range(2):
         batch = make_batch(cfg, step_rng(0, s), 2, 64, dev)
         _build.reset_launch_counts()
         _, m_p = plain_step(state, batch)
         torch.cuda.synchronize()
-        assert _build.launch_counts() == {}
+        cut, moe_p = counts()
+        assert cut == {}
+        _build.reset_launch_counts()
         state, m_k = kernel_step(state, batch)
         torch.cuda.synchronize()
-        assert _build.launch_counts() == {"lloyd_update": 4,
-                                          "pq_quantize": 1}
+        cut, moe_k = counts()
+        assert cut == {"lloyd_update": 4, "pq_quantize": 1}
+        assert moe_k == moe_p
         assert np.isfinite(float(m_k["loss"]))
         np.testing.assert_allclose(float(m_k["loss"]), float(m_p["loss"]),
                                    rtol=1e-4)
